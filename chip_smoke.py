@@ -1,0 +1,223 @@
+#!/usr/bin/env python3
+# -*- coding: utf-8 -*-
+"""
+Run the PyTorch port (syncopy_tpu_torch) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (non-zero exit):
+
+1. device: a CUDA card must be present; prints its name and power limit
+   as ``nvidia-smi --query-gpu=name,power.limit`` reports them;
+2. build: compiles the CUDA kernel from csrc/ and prints the seconds;
+3. kernel: csd_accumulate_tiled on the card against its plain PyTorch
+   version and a complex128 oracle at four shapes, incl. NaN padding rows
+   and n_valid = 0; times kernel and plain version at the bench shape;
+4. main path: connectivityanalysis(method="coh", tapsmofrq=2) on 1000
+   trials x 64 channels x 1000 samples at 1 kHz (float32, seed 0),
+   checked against a float64 computation of the same math, then timed.
+
+The line before the last is a JSON object with each kernel's launches,
+error and times; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: bar for the kernel and its plain version: max|got - oracle| / max|oracle|
+KERNEL_REL_TOL = 1e-5
+#: bar for coherence against the float64 computation (absolute)
+COH_ABS_TOL = 1e-5
+
+N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
+
+
+def cuda_ms(fn, reps=20, warmup=2):
+    """Median milliseconds of `fn` on the current stream, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def csd_oracle(spec, n_valid):
+    """complex128 ``sum_{n < n_valid} s[n,f,i] conj(s[n,f,j])`` on the card."""
+    import torch
+
+    rows = spec[:n_valid].to(torch.complex128).permute(1, 0, 2)  # (F, n, C)
+    return torch.matmul(rows.transpose(1, 2), rows.conj())
+
+
+def check_kernel(ck, N, F, C, n_valid, nan_rows, seed):
+    """One kernel case; returns (max_abs_err, spec) or raises."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spec = torch.randn((N, F, C), dtype=torch.complex64, device="cuda", generator=gen)
+    if nan_rows:
+        spec[n_valid:] = float("nan")
+    got = ck.csd_accumulate_tiled(spec, n_valid)
+    plain = ck.csd_accumulate_tiled_plain(spec, n_valid)
+    torch.cuda.synchronize()
+    want = csd_oracle(spec, n_valid)
+    name = "(N, F, C, n_valid) = ({}, {}, {}, {}){}".format(
+        N, F, C, n_valid, " NaN rows" if nan_rows else "")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("kernel output not finite at " + name)
+    if n_valid == 0:
+        if not bool((got == 0).all()):
+            raise AssertionError("n_valid = 0 must give exact zeros")
+        print("kernel {}: exact zeros".format(name))
+        return 0.0, spec
+    scale = want.abs().max().item()
+    err = (got.to(torch.complex128) - want).abs().max().item()
+    plain_err = (plain.to(torch.complex128) - want).abs().max().item()
+    herm = (got - got.transpose(1, 2).conj()).abs().max().item()
+    print("kernel {}: rel err {:.3e}, plain rel err {:.3e}, hermitian defect {:.3e}".format(
+        name, err / scale, plain_err / scale, herm))
+    if not err / scale < KERNEL_REL_TOL:
+        raise AssertionError("kernel rel err {:.3e} >= {}".format(err / scale, KERNEL_REL_TOL))
+    if not plain_err / scale < KERNEL_REL_TOL:
+        raise AssertionError("plain rel err {:.3e} >= {}".format(plain_err / scale, KERNEL_REL_TOL))
+    if herm != 0.0:
+        raise AssertionError("kernel output not exactly Hermitian")
+    return err, spec
+
+
+def coherence_f64(data, taper, taper_opt):
+    """Float64 coherence of the same math on the card: demean, the port's
+    taper bank, rfft, trial x taper CSD sum, normalization."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    x = torch.from_numpy(data).to("cuda", torch.float64).reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+    x = x - x.mean(dim=1, keepdim=True)
+    tapers = torch.from_numpy(
+        make_tapers(taper, taper_opt, N_SAMPLES, N_SAMPLES, FS)).to("cuda", torch.float64)
+    spec = torch.fft.rfft(tapers[None, :, :, None] * x[:, None], n=N_SAMPLES, dim=2)
+    del x
+    rows = spec.reshape(-1, spec.shape[2], N_CHANNELS).permute(1, 0, 2)  # (F, BK, C)
+    csd = torch.matmul(rows.transpose(1, 2), rows.conj())
+    del spec, rows
+    diag = torch.diagonal(csd, dim1=-2, dim2=-1).real
+    return (csd.abs() / torch.sqrt(diag[:, :, None] * diag[:, None, :])).cpu().numpy()
+
+
+def main():
+    import torch
+
+    # -- 1. device ------------------------------------------------------- #
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    print(smi.stdout.strip())
+    device_name = torch.cuda.get_device_name(0)
+    print("torch {} cuda {} on {}".format(torch.__version__, torch.version.cuda, device_name))
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import syncopy_tpu_torch as spt
+    from syncopy_tpu_torch.engine.routine import chunk_trials
+    from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.shared.input_processors import process_taper
+
+    # -- 2. build -------------------------------------------------------- #
+    t0 = time.perf_counter()
+    ck.load_csd_kernel()
+    print("build: {:.2f} s (nvcc, then load)".format(time.perf_counter() - t0))
+
+    # -- 3. kernel against plain version and oracle ----------------------- #
+    for seed, (N, F, C, nv, nan_rows) in enumerate([
+        (111, 101, 24, 87, False),
+        (40, 17, 8, 25, True),
+        (3, 2, 4, 3, False),
+        (3, 2, 4, 0, False),
+    ]):
+        check_kernel(ck, N, F, C, nv, nan_rows, seed)
+    bench_n_valid = N_TRIALS * 3
+    bench_err, spec = check_kernel(ck, 3072, 501, N_CHANNELS, bench_n_valid, True, 7)
+    kernel_ms = cuda_ms(lambda: ck.csd_accumulate_tiled(spec, bench_n_valid))
+    plain_ms = cuda_ms(lambda: ck.csd_accumulate_tiled_plain(spec, bench_n_valid))
+    print("kernel at (3072, 501, 64, 3000): {:.4f} ms, plain version {:.4f} ms "
+          "(median of 20, CUDA events)".format(kernel_ms, plain_ms))
+    del spec
+    torch.cuda.empty_cache()
+
+    # -- 4. main path ---------------------------------------------------- #
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(N_TRIALS * N_SAMPLES, N_CHANNELS)).astype("f4")
+    trl = np.zeros((N_TRIALS, 3))
+    trl[:, 0] = np.arange(N_TRIALS) * N_SAMPLES
+    trl[:, 1] = trl[:, 0] + N_SAMPLES
+    adata = spt.from_arrays(data, trl, FS)
+
+    ck.csd_accumulate_tiled.launches = 0
+    coh = spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
+    torch.cuda.synchronize()
+    launches = ck.csd_accumulate_tiled.launches
+
+    n_chunks = -(-N_TRIALS // chunk_trials(N_SAMPLES * N_CHANNELS * 4 * 2, N_TRIALS))
+    if launches != n_chunks:
+        raise AssertionError("kernel launched {} times for {} chunks".format(launches, n_chunks))
+    got = np.asarray(coh.data)
+    if got.shape != (1, 501, N_CHANNELS, N_CHANNELS):
+        raise AssertionError("coherence shape {}".format(got.shape))
+    if not np.isfinite(got).all():
+        raise AssertionError("coherence not finite")
+    taper, taper_opt = process_taper(
+        "hann", None, 2, None, keeptapers=False, foimax=FS / 2, samplerate=FS,
+        nSamples=N_SAMPLES, output="pow")
+    coh_err = float(np.abs(got[0] - coherence_f64(data, taper, taper_opt)).max())
+    print("main path: {} kernel launches for {} chunk(s); taper {} {}; coherence max abs "
+          "err vs float64 {:.3e}".format(launches, n_chunks, taper, taper_opt, coh_err))
+    if not coh_err < COH_ABS_TOL:
+        raise AssertionError("coherence err {:.3e} >= {}".format(coh_err, COH_ABS_TOL))
+    torch.cuda.empty_cache()
+
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print("main path warm wall: median {:.4f} s of 5 ({}), {:.1f} trials/s".format(
+        wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
+
+    print(json.dumps({"kernels": [{
+        "name": "csd_accumulate_tiled",
+        "route": "cuda",
+        "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
+        "replaces": "syncopy_tpu/ops/pallas_kernels.py:140",
+        "launches": launches,
+        "max_abs_err": bench_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
