@@ -9,16 +9,28 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA card must be present; prints its name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-2. build: compiles the CUDA kernel from csrc/ and prints the seconds;
+2. build: compiles the two CUDA libraries from csrc/ (three kernels) in
+   parallel, one nvcc each, and prints the seconds of each;
 3. kernel: csd_accumulate_tiled on the card against its plain PyTorch
    version and a complex128 oracle at four shapes, incl. NaN padding rows
    and n_valid = 0; times kernel and plain version at the bench shape;
-4. main path: connectivityanalysis(method="coh", tapsmofrq=2) on 1000
+4. kernel: csd_accumulate (untiled, (F, N, C) float32 planes) against its
+   plain version and a complex128 oracle at four shapes; timed at
+   (501, 3000, 64);
+5. kernel: ppc_accumulate_tiled against its plain version and a
+   complex128 oracle at six shapes, incl. NaN padding trials, n_valid = 0
+   and three channel tiles; timed at the bench chunk (1024, 3, 501, 64);
+6. coh main path: connectivityanalysis(method="coh", tapsmofrq=2) on 1000
    trials x 64 channels x 1000 samples at 1 kHz (float32, seed 0),
-   checked against a float64 computation of the same math, then timed.
+   checked against a float64 computation of the same math, then timed;
+7. ppc main path: connectivityanalysis(method="ppc", tapsmofrq=2) on the
+   same data, checked against a float64 computation, then timed.
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+Each main path runs with the launch counters set to 0 just before it and
+read just after. The line before the last is a JSON object with each
+kernel's launches (csd_accumulate is on no path of the port: the JAX
+package calls it only from its Pallas probe), error and times; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -27,6 +39,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -34,6 +47,11 @@ import numpy as np
 KERNEL_REL_TOL = 1e-5
 #: bar for coherence against the float64 computation (absolute)
 COH_ABS_TOL = 1e-5
+#: bar for the PPC resultant: max|got - oracle| / max(n_valid, 1); U sums
+#: n_valid unit phasors
+PPC_KERNEL_TOL = 1e-5
+#: bar for PPC against the float64 computation (absolute)
+PPC_ABS_TOL = 1e-5
 
 N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
 
@@ -100,6 +118,118 @@ def check_kernel(ck, N, F, C, n_valid, nan_rows, seed):
     return err, spec
 
 
+def check_untiled(ck, F, N, C, seed):
+    """One csd_accumulate case; returns (max_abs_err, re, im) or raises."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    re = torch.randn((F, N, C), device="cuda", generator=gen)
+    im = torch.randn((F, N, C), device="cuda", generator=gen)
+    got_re, got_im = ck.csd_accumulate(re, im)
+    plain_re, plain_im = ck.csd_accumulate_plain(re, im)
+    torch.cuda.synchronize()
+    got, plain = torch.complex(got_re, got_im), torch.complex(plain_re, plain_im)
+    rows = torch.complex(re.double(), im.double())  # (F, N, C)
+    want = torch.matmul(rows.transpose(1, 2), rows.conj())
+    scale = want.abs().max().item()
+    err = (got.to(torch.complex128) - want).abs().max().item()
+    plain_err = (plain.to(torch.complex128) - want).abs().max().item()
+    herm = (got - got.transpose(1, 2).conj()).abs().max().item()
+    print("untiled (F, N, C) = ({}, {}, {}): rel err {:.3e}, plain rel err {:.3e}, "
+          "hermitian defect {:.3e}".format(F, N, C, err / scale, plain_err / scale, herm))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("untiled kernel output not finite")
+    if not err / scale < KERNEL_REL_TOL:
+        raise AssertionError("untiled rel err {:.3e} >= {}".format(err / scale, KERNEL_REL_TOL))
+    if not plain_err / scale < KERNEL_REL_TOL:
+        raise AssertionError("untiled plain rel err {:.3e} >= {}".format(
+            plain_err / scale, KERNEL_REL_TOL))
+    if herm != 0.0:
+        raise AssertionError("untiled kernel output not exactly Hermitian")
+    return err, re, im
+
+
+def ppc_oracle(spec, n_valid, chunk=32):
+    """complex128 resultant of unit per-trial CSDs on the card, in trial
+    chunks: ``sum_{n < n_valid} csd_n / |csd_n|``."""
+    import torch
+
+    N, K, F, C = spec.shape
+    U = torch.zeros((F, C, C), dtype=torch.complex128, device=spec.device)
+    for b0 in range(0, n_valid, chunk):
+        s = spec[b0 : min(b0 + chunk, n_valid)].to(torch.complex128)
+        cs = torch.matmul(s.permute(0, 2, 3, 1), s.conj().permute(0, 2, 1, 3))
+        mag = cs.abs()
+        U += torch.where(mag > 0, cs / torch.where(mag > 0, mag, 1.0), 0).sum(dim=0)
+    return U
+
+
+def check_ppc(pk, N, K, F, C, n_valid, nan_trials, seed):
+    """One ppc_accumulate_tiled case; returns (max_abs_err, spec) or raises."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spec = torch.randn((N, K, F, C), dtype=torch.complex64, device="cuda", generator=gen)
+    if nan_trials:
+        spec[n_valid:] = float("nan")
+    got = pk.ppc_accumulate_tiled(spec, n_valid)
+    plain = pk.ppc_accumulate_tiled_plain(spec, n_valid)
+    torch.cuda.synchronize()
+    name = "(N, K, F, C, n_valid) = ({}, {}, {}, {}, {}){}".format(
+        N, K, F, C, n_valid, " NaN trials" if nan_trials else "")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("ppc kernel output not finite at " + name)
+    if n_valid == 0:
+        if not bool((got == 0).all()):
+            raise AssertionError("ppc n_valid = 0 must give exact zeros")
+        print("ppc {}: exact zeros".format(name))
+        return 0.0, spec
+    want = ppc_oracle(spec, n_valid)
+    err = (got.to(torch.complex128) - want).abs().max().item()
+    plain_err = (plain.to(torch.complex128) - want).abs().max().item()
+    herm = (got - got.transpose(1, 2).conj()).abs().max().item()
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)
+    diag_err = (diag.real - n_valid).abs().max().item()
+    diag_im = diag.imag.abs().max().item()
+    print("ppc {}: err/n {:.3e}, plain err/n {:.3e}, diagonal - n {:.3e}, diagonal imag "
+          "{:.1e}, hermitian defect {:.3e}".format(
+              name, err / n_valid, plain_err / n_valid, diag_err, diag_im, herm))
+    if not err / n_valid < PPC_KERNEL_TOL:
+        raise AssertionError("ppc err/n {:.3e} >= {}".format(err / n_valid, PPC_KERNEL_TOL))
+    if not plain_err / n_valid < PPC_KERNEL_TOL:
+        raise AssertionError("ppc plain err/n {:.3e} >= {}".format(
+            plain_err / n_valid, PPC_KERNEL_TOL))
+    if not diag_err < 1e-3 or diag_im != 0.0:
+        raise AssertionError("ppc diagonal must be n_valid + 0j")
+    if herm != 0.0:
+        raise AssertionError("ppc kernel output not exactly Hermitian")
+    return err, spec
+
+
+def ppc_f64(data, taper, taper_opt, chunk=25):
+    """Float64 PPC of the same math on the card, in trial chunks: demean,
+    the port's taper bank, rfft, per-trial Gram over tapers, unit phasor,
+    sum over trials, (|U|^2 - n) / (n (n - 1))."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    x_all = torch.from_numpy(data).to("cuda").reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+    tapers = torch.from_numpy(
+        make_tapers(taper, taper_opt, N_SAMPLES, N_SAMPLES, FS)).to("cuda", torch.float64)
+    U = torch.zeros((N_SAMPLES // 2 + 1, N_CHANNELS, N_CHANNELS), dtype=torch.complex128,
+                    device="cuda")
+    for b0 in range(0, N_TRIALS, chunk):
+        x = x_all[b0 : b0 + chunk].double()
+        x = x - x.mean(dim=1, keepdim=True)
+        spec = torch.fft.rfft(tapers[None, :, :, None] * x[:, None], n=N_SAMPLES, dim=2)
+        cs = torch.matmul(spec.permute(0, 2, 3, 1), spec.conj().permute(0, 2, 1, 3))
+        mag = cs.abs()
+        U += torch.where(mag > 0, cs / torch.where(mag > 0, mag, 1.0), 0).sum(dim=0)
+    n = N_TRIALS
+    return ((U.abs() ** 2 - n) / (n * (n - 1))).cpu().numpy()
+
+
 def coherence_f64(data, taper, taper_opt):
     """Float64 coherence of the same math on the card: demean, the port's
     taper bank, rfft, trial x taper CSD sum, normalization."""
@@ -139,12 +269,24 @@ def main():
     import syncopy_tpu_torch as spt
     from syncopy_tpu_torch.engine.routine import chunk_trials
     from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import ppc_kernels as pk
     from syncopy_tpu_torch.shared.input_processors import process_taper
 
-    # -- 2. build -------------------------------------------------------- #
+    # -- 2. build: one nvcc per library, all started together ------------- #
+    def timed_build(load):
+        t0 = time.perf_counter()
+        load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    ck.load_csd_kernel()
-    print("build: {:.2f} s (nvcc, then load)".format(time.perf_counter() - t0))
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {name: pool.submit(timed_build, load) for name, load in [
+            ("csd_accumulate (tiled + untiled)", ck.load_csd_kernel),
+            ("ppc_accumulate", pk.load_ppc_kernel)]}
+        builds = {name: fut.result() for name, fut in builds.items()}
+    for name, seconds in builds.items():
+        print("build {}: {:.2f} s (nvcc, then load)".format(name, seconds))
+    print("build, both libraries: {:.2f} s".format(time.perf_counter() - t0))
 
     # -- 3. kernel against plain version and oracle ----------------------- #
     for seed, (N, F, C, nv, nan_rows) in enumerate([
@@ -163,7 +305,35 @@ def main():
     del spec
     torch.cuda.empty_cache()
 
-    # -- 4. main path ---------------------------------------------------- #
+    # -- 4. untiled kernel against plain version and oracle --------------- #
+    for seed, (F, N, C) in enumerate([(5, 12, 8), (2, 1, 4), (1, 8, 128)]):
+        check_untiled(ck, F, N, C, 20 + seed)
+    untiled_err, re, im = check_untiled(ck, 501, 3000, N_CHANNELS, 23)
+    untiled_ms = cuda_ms(lambda: ck.csd_accumulate(re, im))
+    untiled_plain_ms = cuda_ms(lambda: ck.csd_accumulate_plain(re, im))
+    print("untiled kernel at (501, 3000, 64): {:.4f} ms, plain version {:.4f} ms "
+          "(median of 20, CUDA events)".format(untiled_ms, untiled_plain_ms))
+    del re, im
+    torch.cuda.empty_cache()
+
+    # -- 5. PPC kernel against plain version and oracle -------------------- #
+    for seed, (N, K, F, C, nv, nan_trials) in enumerate([
+        (21, 3, 11, 8, 17, False),
+        (16, 2, 8, 4, 16, False),
+        (13, 2, 9, 6, 9, True),
+        (4, 1, 3, 4, 0, False),
+        (37, 5, 7, 70, 30, False),
+    ]):
+        check_ppc(pk, N, K, F, C, nv, nan_trials, 30 + seed)
+    ppc_err, spec = check_ppc(pk, 1024, 3, 501, N_CHANNELS, N_TRIALS, True, 36)
+    ppc_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled(spec, N_TRIALS))
+    ppc_plain_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled_plain(spec, N_TRIALS), reps=5, warmup=1)
+    print("ppc kernel at (1024, 3, 501, 64, 1000): {:.4f} ms (median of 20), plain version "
+          "{:.4f} ms (median of 5), CUDA events".format(ppc_ms, ppc_plain_ms))
+    del spec
+    torch.cuda.empty_cache()
+
+    # -- 6. coh main path ------------------------------------------------- #
     rng = np.random.default_rng(0)
     data = rng.normal(size=(N_TRIALS * N_SAMPLES, N_CHANNELS)).astype("f4")
     trl = np.zeros((N_TRIALS, 3))
@@ -172,9 +342,12 @@ def main():
     adata = spt.from_arrays(data, trl, FS)
 
     ck.csd_accumulate_tiled.launches = 0
+    ck.csd_accumulate.launches = 0
+    pk.ppc_accumulate_tiled.launches = 0
     coh = spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
     torch.cuda.synchronize()
     launches = ck.csd_accumulate_tiled.launches
+    untiled_launches = ck.csd_accumulate.launches
 
     n_chunks = -(-N_TRIALS // chunk_trials(N_SAMPLES * N_CHANNELS * 4 * 2, N_TRIALS))
     if launches != n_chunks:
@@ -204,6 +377,42 @@ def main():
     print("main path warm wall: median {:.4f} s of 5 ({}), {:.1f} trials/s".format(
         wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
 
+    # -- 7. ppc main path ------------------------------------------------- #
+    ck.csd_accumulate_tiled.launches = 0
+    ck.csd_accumulate.launches = 0
+    pk.ppc_accumulate_tiled.launches = 0
+    ppc = spt.connectivityanalysis(adata, method="ppc", tapsmofrq=2)
+    torch.cuda.synchronize()
+    ppc_launches = pk.ppc_accumulate_tiled.launches
+    untiled_launches += ck.csd_accumulate.launches
+    if ppc_launches != n_chunks:
+        raise AssertionError("ppc kernel launched {} times for {} chunks".format(
+            ppc_launches, n_chunks))
+    got = np.asarray(ppc.data)
+    if got.shape != (1, 501, N_CHANNELS, N_CHANNELS) or got.dtype != np.float32:
+        raise AssertionError("ppc shape {} dtype {}".format(got.shape, got.dtype))
+    if not np.isfinite(got).all():
+        raise AssertionError("ppc not finite")
+    diag_err = float(np.abs(got[0][:, np.arange(N_CHANNELS), np.arange(N_CHANNELS)] - 1).max())
+    ppc_abs_err = float(np.abs(got[0] - ppc_f64(data, taper, taper_opt)).max())
+    print("ppc main path: {} kernel launches for {} chunk(s); diagonal - 1 {:.3e}; ppc max "
+          "abs err vs float64 {:.3e}".format(ppc_launches, n_chunks, diag_err, ppc_abs_err))
+    if not diag_err < 1e-5:
+        raise AssertionError("ppc diagonal err {:.3e} >= 1e-5".format(diag_err))
+    if not ppc_abs_err < PPC_ABS_TOL:
+        raise AssertionError("ppc err {:.3e} >= {}".format(ppc_abs_err, PPC_ABS_TOL))
+    torch.cuda.empty_cache()
+
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        spt.connectivityanalysis(adata, method="ppc", tapsmofrq=2)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print("ppc main path warm wall: median {:.4f} s of 5 ({}), {:.1f} trials/s".format(
+        wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
+
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
@@ -213,6 +422,24 @@ def main():
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "csd_accumulate",
+        "route": "cuda",
+        "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
+        "replaces": "syncopy_tpu/ops/pallas_kernels.py:43",
+        "launches": untiled_launches,
+        "max_abs_err": untiled_err,
+        "ms": untiled_ms,
+        "plain_ms": untiled_plain_ms,
+    }, {
+        "name": "ppc_accumulate_tiled",
+        "route": "cuda",
+        "source": "syncopy_tpu_torch/csrc/ppc_accumulate.cu",
+        "replaces": "syncopy_tpu/ops/pallas_kernels.py:249",
+        "launches": ppc_launches,
+        "max_abs_err": ppc_err,
+        "ms": ppc_ms,
+        "plain_ms": ppc_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

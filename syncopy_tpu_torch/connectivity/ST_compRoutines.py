@@ -2,8 +2,8 @@
 #
 # Single-trial connectivity compute routines (main-path subset).
 #
-# Port of syncopy_tpu/connectivity/ST_compRoutines.py: _CrossRoutine and
-# CrossSpectra. PPCSpectra, SpectralDyadicProduct and CrossCovariance land
+# Port of syncopy_tpu/connectivity/ST_compRoutines.py: _CrossRoutine,
+# CrossSpectra, PPCSpectra and SpectralDyadicProduct. CrossCovariance lands
 # with ROADMAP Queue 1 item 8.
 
 import numpy as np
@@ -11,11 +11,13 @@ import torch
 
 from ..engine.routine import ComputationalRoutine
 from ..shared.errors import not_ported
+from ..ops.connectivity import csd_sum_compensated, spectral_dyadic_product
 from ..ops.csd_kernels import csd_accumulate_tiled
+from ..ops.ppc_kernels import ppc_accumulate_tiled
 from ..ops.spectral import detrend
 from ..ops.windows import make_tapers
 
-__all__ = ["CrossSpectra"]
+__all__ = ["CrossSpectra", "PPCSpectra", "SpectralDyadicProduct"]
 
 
 def _take_labels(labels, indexer):
@@ -128,3 +130,92 @@ class CrossSpectra(_CrossRoutine):
         slab = spec.reshape(B * K, F, C).contiguous()
         cs_sum = csd_accumulate_tiled(slab, n_valid * K) / K
         return cs_sum[None]
+
+
+class PPCSpectra(CrossSpectra):
+    """
+    Fused single-pass pairwise phase consistency from AnalogData: the
+    single-trial cross spectra and the unit-phasor resultant reduction
+    (Vinck 2010 Eq. 14; reference connectivity_analysis.py:624-667) in one
+    engine pass, so the per-trial CSD stack never exists.
+    ``process_batch_sum`` returns the resultant SUM of unit CSDs; the
+    frontend's post computes ``(|U|^2 - n) / (n (n - 1))``.
+
+    The JAX routine's ``device_bytes_per_trial`` has no counterpart: the
+    port's engine sizes chunks from the input bytes alone
+    (engine/routine.py::_chunk_size), and the CUDA kernel keeps the
+    per-trial CSDs in registers.
+    """
+
+    def process_single_trial(self, trial, **cfg):
+        cs = super().process_single_trial(trial, **cfg)
+        # exact-zero bins are 0/0, as in the JAX package: they cannot occur
+        # in tapered spectra of real data off the padding, which the batch
+        # path masks by n_valid
+        return cs / cs.abs()
+
+    def process_batch_sum(self, batch, n_valid, **cfg):
+        tapered, _, nfft = self._tapered_batch(batch, cfg)
+        # rfft along a middle axis leaves a (B, K, C, F)-strided result;
+        # the kernel reads (B, K, F, C) in place
+        spec = self._batch_spectra(tapered, nfft, cfg).contiguous()
+        return ppc_accumulate_tiled(spec, n_valid)[None]
+
+
+class SpectralDyadicProduct(_CrossRoutine):
+    """
+    Single-trial cross spectra from complex SpectralData: channel outer
+    product, tapers averaged (reference ST_compRoutines.py:29-152).
+    Optional (senders x receivers) restriction via `send_idx`/`rec_idx`.
+    """
+
+    valid_kws = ["send_idx", "rec_idx", "output"]
+
+    def __init__(self, send_idx=None, rec_idx=None):
+        super().__init__(
+            send_idx=None if send_idx is None else np.asarray(send_idx, dtype=int),
+            rec_idx=None if rec_idx is None else np.asarray(rec_idx, dtype=int),
+            foi=None,
+        )
+
+    def output_trial_shape(self, trial_shape):
+        T, _, F, C = trial_shape
+        n_send = C if self.cfg["send_idx"] is None else len(self.cfg["send_idx"])
+        n_rec = C if self.cfg["rec_idx"] is None else len(self.cfg["rec_idx"])
+        return (T, F, n_send, n_rec), np.dtype(np.complex64)
+
+    def process_single_trial(self, trial, **cfg):
+        return spectral_dyadic_product(trial, cfg["send_idx"], cfg["rec_idx"])
+
+    def process_batch_sum(self, batch, n_valid, **cfg):
+        """Masked trial sum with compensated accumulation, as in the JAX
+        package: the averaged CSD feeds Wilson downstream (Granger on
+        SpectralData input), where plain serial float32 accumulation noise
+        destroys factorizability (see ops/connectivity.csd_sum_compensated).
+        `batch` is (B, nTime, K, F, C) complex."""
+        B, T, K, F, C = batch.shape
+        valid = torch.arange(B, device=batch.device) < n_valid
+        x = torch.where(valid[:, None, None, None, None], batch,
+                        torch.zeros((), dtype=batch.dtype, device=batch.device))
+        if cfg["send_idx"] is not None:
+            a = x.index_select(4, torch.as_tensor(cfg["send_idx"], device=batch.device))
+            b = x.index_select(4, torch.as_tensor(cfg["rec_idx"], device=batch.device))
+            cs = torch.einsum("btkfi,btkfj->tfij", a, b.conj()) / K
+            return cs.to(torch.complex64)
+        per_time = torch.stack([csd_sum_compensated(x[:, t]) for t in range(T)], dim=0)
+        return (per_time / K).to(torch.complex64)
+
+    def process_metadata(self, data, out):
+        sdim = 0
+        n_times = [oshp[sdim] for oshp in self._per_trial_out_shapes_ordered]
+        out.trialdefinition = self._cross_trialdefinition(n_times)
+        out.samplerate = data.samplerate
+        sel = self.selector
+        chan = _take_labels(data.channel, getattr(sel, "channel", None))
+        if self.cfg["send_idx"] is not None:
+            out.channel_i = np.asarray(data.channel)[self.cfg["send_idx"]]
+            out.channel_j = np.asarray(data.channel)[self.cfg["rec_idx"]]
+        else:
+            out.channel_i = chan
+            out.channel_j = chan
+        out.freq = _take_labels(np.asarray(data.freq), getattr(sel, "freq", None))

@@ -1,17 +1,28 @@
 # -*- coding: utf-8 -*-
 #
-# connectivityanalysis: user-facing connectivity frontend (coh method).
+# connectivityanalysis: user-facing connectivity frontend (coh, csd, ppc).
 #
-# Port of syncopy_tpu/connectivity/connectivity_analysis.py. Coherence runs
-# as in the JAX package's fused path: one single-trial stage (CrossSpectra)
-# whose trial sum is normalized on the device, read back once in full.
-# The other methods raise NotImplementedError naming the ROADMAP item that
-# ports them.
+# Port of syncopy_tpu/connectivity/connectivity_analysis.py. A single-trial
+# stage computes cross spectra, from AnalogData (CrossSpectra, PPCSpectra)
+# or from complex SpectralData (SpectralDyadicProduct, with `channelcmb`);
+# where trials are averaged, the normalization runs fused on the device
+# onto the stage's trial sum, and the result is read back once, in full.
+# - coh: the trial-averaged CSD, normalized.
+# - csd: the single-trial (keeptrials=True) or averaged CSD.
+# - ppc from AnalogData: the fused route, PPCSpectra (spectra and the
+#   unit-phasor resultant in one pass, through the CUDA kernel on the
+#   card) with PPCReduction's post. ppc from SpectralData: the two-pass
+#   route, single-trial SpectralDyadicProduct then _compute_ppc.
+# Not ported: the SPY_TPU_FUSED_PPC switch back to the two-pass route from
+# AnalogData (the port has no environment knobs), and the triangular and
+# Hermitian readback packs, workarounds for the TPU runtime's readback.
+# granger, corr and jackknife raise NotImplementedError naming the ROADMAP
+# item that ports them.
 
 import numpy as np
 
 from ..datatype.continuous_data import AnalogData, CrossSpectralData, SpectralData
-from ..shared.errors import SPYInfo, SPYTypeError, SPYValueError, not_ported
+from ..shared.errors import SPYInfo, SPYTypeError, SPYValueError, SPYWarning, not_ported
 from ..shared.input_processors import (
     check_effective_parameters,
     check_passed_kwargs,
@@ -20,7 +31,7 @@ from ..shared.input_processors import (
     process_taper,
 )
 from ..shared.kwarg_decorators import detect_parallel_client, unwrap_cfg, unwrap_select
-from ..shared.parsers import data_parser, scalar_parser
+from ..shared.parsers import data_parser, scalar_parser, sequence_parser
 from ..shared.tools import best_match, get_defaults, get_frontend_cfg
 
 __all__ = ["connectivityanalysis"]
@@ -32,8 +43,6 @@ connectivity_outputs = ("abs", "pow", "complex", "fourier", "angle", "real", "im
 _NOT_PORTED = {
     "corr": "ROADMAP Queue 1 item 8 (CrossCovariance)",
     "granger": "ROADMAP Queue 1 item 7 (the Granger slice)",
-    "csd": "ROADMAP Queue 1 item 8 (csd)",
-    "ppc": "ROADMAP Queue 1 item 8 and Queue 2 item 2 (PPC)",
 }
 
 
@@ -59,41 +68,47 @@ def connectivityanalysis(
     **kwargs,
 ):
     """
-    Perform connectivity analysis of AnalogData.
+    Perform connectivity analysis of AnalogData or (complex) SpectralData.
 
-    Ported method: ``coh`` (coherence). ``corr``, ``granger``, ``csd`` and
-    ``ppc`` raise NotImplementedError until their slices land.
+    Ported methods: ``coh`` (coherence), ``csd`` (single-trial/averaged
+    cross-spectra) and ``ppc`` (pairwise phase consistency). ``corr`` and
+    ``granger`` raise NotImplementedError until their slices land.
 
     Parameters
     ----------
-    data : :class:`~syncopy_tpu_torch.AnalogData`
-        Time series.
+    data : :class:`~syncopy_tpu_torch.AnalogData` or complex :class:`~syncopy_tpu_torch.SpectralData`
+        Time series, or pre-computed single-trial Fourier spectra
+        (``output="fourier"``, trials kept).
     method : {"coh", "corr", "granger", "csd", "ppc"}
-        Connectivity measure; only "coh" is ported.
+        Connectivity measure (see above).
     keeptrials : bool
-        Must be False for "coh" (coherence is defined across trials).
+        Keep single-trial estimates ("csd" only; the averaged measures are
+        defined across trials).
     output : str
-        "abs", "pow", "complex"/"fourier", "real", "imag" or "angle".
+        For "coh": "abs", "pow", "complex"/"fourier", "real", "imag",
+        "angle". Ignored (with a warning) by the other methods.
     foi, foilim : array_like / [fmin, fmax] / None
-        Frequencies of interest.
+        Frequencies of interest (AnalogData input).
     pad : "maxperlen", "nextpow2", or float
         Trial padding policy.
     channelcmb : [senders, receivers] or None
-        Needs SpectralData input, as in the JAX package; not ported yet.
+        Two channel lists restricting the pairwise computation; needs
+        SpectralData input. Results contain only the requested block.
     polyremoval : {0, 1, None}
         Per-trial detrend order before tapering.
     tapsmofrq, nTaper, taper, taper_opt
-        Multi-taper controls.
+        Multi-taper controls (AnalogData input).
     jackknife : bool
-        Leave-one-out error estimation; not ported yet.
+        Leave-one-out error estimation for "coh"; not ported yet. Ignored
+        with a warning by the other methods, as in the JAX package.
     parallel : bool or None
         Accepted for API parity and ignored: the engine runs on one device.
 
     Returns
     -------
     :class:`~syncopy_tpu_torch.CrossSpectralData`
-        ``(time, freq, channel_i, channel_j)`` coherence with replayable
-        ``cfg``.
+        ``(time, freq, channel_i, channel_j)`` connectivity estimates with
+        replayable ``cfg``.
 
     Reference: connectivity_analysis.py:51.
     """
@@ -113,8 +128,13 @@ def connectivityanalysis(
         raise not_ported("method '{}'".format(method), _NOT_PORTED[method])
     if not isinstance(jackknife, bool):
         raise SPYTypeError(jackknife, "jackknife", "boolean")
+    if jackknife and method != "coh":
+        SPYWarning("Jackknife is not available for method {}".format(method))
+        jackknife = False
     if jackknife:
         raise not_ported("jackknife", "ROADMAP Queue 1 item 8 (statistics/jackknifing.py)")
+    if method != "coh" and output != defaults["output"]:
+        SPYWarning("Setting `output` for method {} has no effect!".format(method))
 
     if data.selection is not None:
         sinfo = data.selection.trialdefinition[:, :2]
@@ -123,10 +143,9 @@ def connectivityanalysis(
     lenTrials = np.atleast_1d(np.diff(sinfo).squeeze())
     nTrials = len(sinfo)
 
-    if channelcmb is not None and not isinstance(data, SpectralData):
-        raise SPYTypeError(
-            data, "data", expected="SpectralData, `channelcmb` not supported for other data types"
-        )
+    send_idx = rec_idx = None
+    if channelcmb is not None:
+        send_idx, rec_idx = _digest_channelcmb(data, channelcmb)
     if polyremoval is not None:
         scalar_parser(polyremoval, varname="polyremoval", ntype="int_like", lims=[0, 1])
 
@@ -134,7 +153,9 @@ def connectivityanalysis(
                 "pad": pad, "channelcmb": channelcmb}
     new_cfg = get_frontend_cfg(defaults, lcls, kwargs)
 
-    from .ST_compRoutines import CrossSpectra
+    from .ST_compRoutines import CrossSpectra, PPCSpectra, SpectralDyadicProduct
+
+    # -- single-trial stage setup ---------------------------------------- #
 
     if nTrials == 1:
         raise SPYValueError(
@@ -142,36 +163,72 @@ def connectivityanalysis(
             "critically depend on trial averaging!",
             varname="data", actual="only one trial",
         )
-    if keeptrials is not False:
+    if keeptrials is not False and method in ("coh", "ppc", "granger"):
         raise SPYValueError(
             legal="False, trial averaging needed for method {}!".format(method),
             varname="keeptrials", actual=str(keeptrials),
         )
-    if not isinstance(data, AnalogData):
-        raise not_ported("coherence from SpectralData",
-                          "ROADMAP Queue 1 item 8 (SpectralDyadicProduct)")
 
-    nSamples = process_padding(pad, lenTrials, data.samplerate)
-    check_effective_parameters(CrossSpectra, defaults, lcls, besides=["jackknife", "channelcmb"])
-    st_compRoutine = _setup_cross_spectra(
-        data, nSamples, foi, foilim, tapsmofrq, nTaper, taper, taper_opt,
-        polyremoval, lenTrials, log_dict,
-    )
-
-    if output not in connectivity_outputs:
-        raise SPYValueError(
-            legal="one of {}".format(connectivity_outputs), varname="output", actual=output
+    if isinstance(data, AnalogData):
+        nSamples = process_padding(pad, lenTrials, data.samplerate)
+        check_effective_parameters(CrossSpectra, defaults, lcls, besides=["jackknife", "channelcmb"])
+        # ppc from AnalogData: spectra and the unit-phasor reduction in one
+        # engine pass (PPCSpectra); the per-trial CSD stack never exists
+        st_compRoutine = _setup_cross_spectra(
+            data, nSamples, foi, foilim, tapsmofrq, nTaper, taper, taper_opt,
+            polyremoval, lenTrials, log_dict,
+            cls=PPCSpectra if method == "ppc" else CrossSpectra,
         )
-    log_dict["output"] = output
+    else:
+        # dtype check via the payload's dtype attribute: no element access
+        if not np.issubdtype(np.dtype(data.data.dtype), np.complexfloating):
+            raise SPYValueError(
+                legal="complex valued spectra, set `output='fourier'` in spy.freqanalysis!",
+                varname="data", actual="real valued spectral data",
+            )
+        check_effective_parameters(
+            SpectralDyadicProduct, defaults, lcls, besides=["jackknife", "channelcmb"]
+        )
+        if send_idx is not None and method in ("ppc", "csd"):
+            st_compRoutine = SpectralDyadicProduct(send_idx=send_idx, rec_idx=rec_idx)
+        else:
+            st_compRoutine = SpectralDyadicProduct()
 
-    # coherence = trial-averaged CSD + normalization, the normalization
-    # fused onto the single-trial stage's device-side trial sum
-    out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
-    st_compRoutine.initialize(data, out._stackingDim, keeptrials=False)
-    st_compRoutine.compute(
-        data, out, log_dict=log_dict,
-        post_device_fn=lambda csd_avg: _coh_post(csd_avg, output=output),
-    )
+    if method == "coh":
+        if output not in connectivity_outputs:
+            raise SPYValueError(
+                legal="one of {}".format(connectivity_outputs), varname="output", actual=output
+            )
+        log_dict["output"] = output
+
+    # -- run the single-trial stage --------------------------------------- #
+
+    st_out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+    # ppc from SpectralData runs in two passes: single-trial cross spectra,
+    # then the resultant reduction of _compute_ppc
+    two_pass_ppc = method == "ppc" and not isinstance(data, AnalogData)
+    st_keeptrials = bool(keeptrials or two_pass_ppc)
+    st_compRoutine.initialize(data, st_out._stackingDim, keeptrials=st_keeptrials)
+
+    if st_keeptrials:
+        st_compRoutine.compute(data, st_out, log_dict=log_dict)
+    else:
+        # the trial average's normalization, fused onto the device-side
+        # trial sum; csd keeps the average as it is
+        if method == "coh":
+            post = lambda csd_avg: _coh_post(csd_avg, output=output)  # noqa: E731
+        elif method == "ppc":
+            from .AV_compRoutines import PPCReduction
+
+            post = PPCReduction.make_post(st_compRoutine.numTrials)
+        else:
+            post = lambda csd_avg: csd_avg  # noqa: E731
+        st_compRoutine.compute(data, st_out, log_dict=log_dict, post_device_fn=post)
+
+    out = _compute_ppc(st_out) if two_pass_ppc else st_out
+    if send_idx is not None and method == "coh":
+        out = out.selectdata(channel_i=[str(c) for c in np.asarray(data.channel)[send_idx]])
+        out = out.selectdata(channel_j=[str(c) for c in np.asarray(data.channel)[rec_idx]])
     out.cfg.update(data.cfg)
     new_cfg.update({"output": output})
     out.cfg.update({"connectivityanalysis": new_cfg})
@@ -191,13 +248,51 @@ def _coh_post(csd_avg, output="abs"):
     return normalize_csd(csd_avg, output)
 
 
-def _setup_cross_spectra(data, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
-                         taper_opt, polyremoval, lenTrials, log_dict):
-    """Configure the implicit mtmfft+dyadic ST routine for AnalogData input
-    (reference connectivity_analysis.py:775-872). The Granger settings
-    (demeaned tapers, exact_fft) land with the Granger slice."""
-    from .ST_compRoutines import CrossSpectra
+def _digest_channelcmb(data, channelcmb):
+    """Validate [senders, receivers] and return index arrays
+    (reference connectivity_analysis.py:335-381)."""
+    if not isinstance(data, SpectralData):
+        raise SPYTypeError(
+            data, "data", expected="SpectralData, `channelcmb` not supported for other data types"
+        )
+    if not isinstance(channelcmb, list) or len(channelcmb) != 2:
+        raise SPYValueError(
+            legal="list with exactly two elements: [senders, receivers]",
+            varname="channelcmb",
+            actual=str(channelcmb),
+        )
+    if data.selection is not None and data.selection.channel not in (slice(None), slice(None, None, 1)):
+        raise SPYValueError("either channel selection or use channelcmb", "select/channelcmb", "both")
+    senders, receivers = channelcmb
+    sequence_parser(senders, varname="channelcmb[senders,")
+    cmb_type = type(senders[0])
+    if cmb_type not in (str, int) and not np.issubdtype(cmb_type, np.integer):
+        raise SPYTypeError(senders[0], "channelcmb[senders,", "either `int` or `str`")
+    labels = [str(c) for c in np.asarray(data.channel)]
 
+    def to_idx(seq):
+        idx = []
+        for chan in seq:
+            if isinstance(chan, str):
+                if chan not in labels:
+                    raise SPYValueError("names or indices of existing channels", "channelcmb", str(chan))
+                idx.append(labels.index(chan))
+            else:
+                ichan = int(chan)
+                if ichan < 0 or ichan >= len(labels):
+                    raise SPYValueError("names or indices of existing channels", "channelcmb", str(chan))
+                idx.append(ichan)
+        return np.asarray(idx, dtype=int)
+
+    return to_idx(senders), to_idx(receivers)
+
+
+def _setup_cross_spectra(data, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
+                         taper_opt, polyremoval, lenTrials, log_dict, cls):
+    """Configure the implicit mtmfft+dyadic ST routine for AnalogData input
+    (reference connectivity_analysis.py:775-872). `cls` picks the routine
+    class (CrossSpectra or its fused-PPC subclass). The Granger settings
+    (demeaned tapers, exact_fft) land with the Granger slice."""
     foi, foilim = process_foi(foi, foilim, data.samplerate)
     freqs = np.fft.rfftfreq(nSamples, 1 / data.samplerate)
     freq_idx = None
@@ -216,7 +311,25 @@ def _setup_cross_spectra(data, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
     log_dict["foi"] = out_foi
     log_dict["taper"] = taper
 
-    return CrossSpectra(
+    return cls(
         samplerate=data.samplerate, nSamples=nSamples, taper=taper, taper_opt=taper_opt,
         polyremoval=polyremoval, freq_idx=freq_idx, foi=out_foi,
     )
+
+
+def _compute_ppc(st_out):
+    """PPC from the single-trial cross-spectra via the streamed resultant
+    identity (replaces reference connectivity_analysis.py:624-667): the
+    engine sums unit cross-spectra chunk-wise on the device, so host memory
+    stays bounded by one chunk."""
+    from .AV_compRoutines import PPCReduction
+
+    out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+    cr = PPCReduction()
+    cr.initialize(st_out, out._stackingDim, keeptrials=False)
+    n_trials = cr.numTrials
+    cr.compute(st_out, out, log_dict={"method": "ppc", "nTrials": n_trials},
+               post_device_fn=PPCReduction.make_post(n_trials))
+    out._log = str(st_out._log)
+    out.log = "computed pairwise phase consistency over {} trials".format(n_trials)
+    return out

@@ -1,17 +1,44 @@
 # -*- coding: utf-8 -*-
 #
-# Connectivity ops on torch tensors: coherence normalization and the
-# compensated cross-spectral density sum.
+# Connectivity ops on torch tensors: the dyadic product of precomputed
+# spectra, coherence normalization and the compensated cross-spectral
+# density sum.
 #
-# Port of the main-path subset of syncopy_tpu/ops/connectivity.py
-# (normalize_csd, csd_sum_compensated). The rest of that module (Wilson,
-# Granger, cross-covariance, PPC) lands with its slice (ROADMAP Queue 1).
+# Port of a subset of syncopy_tpu/ops/connectivity.py
+# (spectral_dyadic_product, normalize_csd, csd_sum_compensated). The rest
+# of that module (Wilson, Granger, cross-covariance) lands with its slice
+# (ROADMAP Queue 1).
 
 import torch
 
 from .spectral import spectral_convert
 
-__all__ = ["normalize_csd", "csd_sum_compensated", "gram_sum_twosum"]
+__all__ = ["spectral_dyadic_product", "normalize_csd", "csd_sum_compensated",
+           "gram_sum_twosum"]
+
+
+def spectral_dyadic_product(spec, send_idx=None, rec_idx=None):
+    """
+    Cross spectra from complex (time-)frequency spectra: outer product over
+    the channel axis, tapers averaged (reference ST_compRoutines.py:29-120).
+
+    Parameters
+    ----------
+    spec : (nTime, nTaper, nFreq, nChannel) complex tensor
+    send_idx, rec_idx : optional channel index arrays restricting the
+        product to (senders x receivers) combinations
+
+    Returns
+    -------
+    CS : (nTime, nFreq, nSend, nRec) complex64
+    """
+    if send_idx is not None:
+        a = spec.index_select(3, torch.as_tensor(send_idx, device=spec.device))
+        b = spec.index_select(3, torch.as_tensor(rec_idx, device=spec.device))
+    else:
+        a = b = spec
+    CS = torch.einsum("tkfi,tkfj->tfij", a, b.conj()) / spec.shape[1]
+    return CS.to(torch.complex64)
 
 
 def normalize_csd(csd_av, output="abs"):

@@ -1,101 +1,50 @@
 # -*- coding: utf-8 -*-
 #
-# Tiled cross-spectral density accumulation: the hand-written CUDA kernel
-# (csrc/csd_accumulate.cu), its loader, its plain PyTorch version and the
-# wrapper that picks between them by the tensor's device.
+# Cross-spectral density accumulation: the hand-written CUDA kernels
+# (csrc/csd_accumulate.cu), their loader, their plain PyTorch versions and
+# the wrappers that pick between them by the tensor's device.
 #
-# Replaces the TPU kernel syncopy_tpu/ops/pallas_kernels.py::
-# csd_accumulate_tiled (body _csd_tiled_kernel). Bounded on the H100 by the
-# FP32 FMA pipes: 8*F*N*C^2 ~ 49 GFLOP at the bench shape (N=3000 rows,
-# F=501, C=64), about half that with Hermitian symmetry, over a 0.77 GB
-# spectrum (an estimate from shapes, not a measurement). Tensor cores stay
-# unused because TF32 would break the 1e-5 relative bar. The kernel reads
-# the complex64 spectrum in place, computes only the i <= j channel tiles
-# and mirrors them, and keeps the TPU kernel's numerics (256-row float32
-# groups, TwoSum across groups, rows past n_valid never read).
+# Replace the TPU kernels syncopy_tpu/ops/pallas_kernels.py::
+# csd_accumulate_tiled (body _csd_tiled_kernel) and csd_accumulate (body
+# _csd_kernel, the untiled per-frequency Gram; in the JAX package only the
+# pallas_supported() probe calls it). One templated kernel body serves
+# both: it differs only in how a row is loaded and a result stored.
+#
+# Bounded on the H100 by the FP32 FMA pipes: 8*F*N*C^2 ~ 49 GFLOP at the
+# bench shape (N=3000 rows, F=501, C=64), about half that with Hermitian
+# symmetry, over a 0.77 GB spectrum (an estimate from shapes, not a
+# measurement). Tensor cores stay unused because TF32 would break the 1e-5
+# relative bar. The kernel reads its input in place, computes only the
+# i <= j channel tiles and mirrors them, and keeps the tiled TPU kernel's
+# numerics (256-row float32 groups, TwoSum across groups, rows past
+# n_valid never read).
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from ._nvcc import load_library
 from .connectivity import gram_sum_twosum
 
-__all__ = ["csd_accumulate_tiled", "csd_accumulate_tiled_plain", "load_csd_kernel"]
+__all__ = ["csd_accumulate", "csd_accumulate_plain", "csd_accumulate_tiled",
+           "csd_accumulate_tiled_plain", "load_csd_kernel"]
 
 #: rows per float32 group before the TwoSum (the TPU kernel's row_block)
 ROW_BLOCK = 256
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "csd_accumulate.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-#: CUDA toolkit roots searched for nvcc after $CUDA_HOME and $PATH
-_CUDA_HOMES = ("/usr/local/cuda",)
-
-_lib = None
-
-
-def _find_nvcc():
-    homes = [os.environ.get("CUDA_HOME")] + list(_CUDA_HOMES)
-    for home in homes:
-        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    return shutil.which("nvcc")
-
 
 def load_csd_kernel():
     """
-    Build (once per source hash) and load the CUDA kernel's shared library.
-
-    The library goes to ``build/csd_accumulate-<hash>.so`` at the checkout
-    root, named by a hash of the source and the nvcc flags, so a changed
-    source never loads a stale build. Raises RuntimeError when nvcc is
-    missing or the compile fails.
+    Build (once per source hash) and load the shared library of
+    ``csrc/csd_accumulate.cu``, with both launchers typed. Raises
+    RuntimeError when nvcc is missing or the compile fails.
     """
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = _BUILD_DIR / "csd_accumulate-{}.so".format(digest)
-    if not so_path.exists():
-        nvcc = _find_nvcc()
-        if nvcc is None:
-            raise RuntimeError(
-                "cannot build {}: nvcc not found (set CUDA_HOME or put nvcc on PATH)".format(_SOURCE)
-            )
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a private name, then rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed on {} (exit {}):\n{}".format(_SOURCE, proc.returncode, proc.stderr)
-                )
-            os.replace(tmp, so_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so_path))
-    fn = lib.csd_accumulate_tiled_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
+    lib = load_library("csd_accumulate")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.csd_accumulate_tiled_launch.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.csd_accumulate_tiled_launch.restype = ctypes.c_int
+    lib.csd_accumulate_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.csd_accumulate_launch.restype = ctypes.c_int
     return lib
 
 
@@ -153,3 +102,61 @@ def csd_accumulate_tiled(spec, n_valid):
 
 #: kernel launches since the last reset (set to 0 to start a count)
 csd_accumulate_tiled.launches = 0
+
+
+def csd_accumulate_plain(spec_re, spec_im):
+    """
+    Plain PyTorch version of :func:`csd_accumulate`: the four real float32
+    matmuls of the TPU kernel, ``Re = Ar^T Ar + Ai^T Ai``,
+    ``Im = Ai^T Ar - Ar^T Ai`` per frequency.
+    """
+    ar, ai = spec_re.to(torch.float32), spec_im.to(torch.float32)
+    art, ait = ar.transpose(1, 2), ai.transpose(1, 2)
+    return torch.matmul(art, ar) + torch.matmul(ait, ai), torch.matmul(ait, ar) - torch.matmul(art, ai)
+
+
+def csd_accumulate(spec_re, spec_im):
+    """
+    Accumulated cross-spectra from (F, N, C) float32 real and imaginary
+    planes: ``cs[f, i, j] = sum_n spec[f, n, i] * conj(spec[f, n, j])``
+    over all N rows.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    hand-written kernel (the tiled kernel's body reading the two planes in
+    place) on the current stream, or raises: it never falls back.
+
+    Returns (cs_re, cs_im), each (F, C, C) float32 on the input's device.
+    """
+    if spec_re.ndim != 3 or spec_re.shape != spec_im.shape:
+        raise ValueError("spec_re and spec_im must be (F, N, C) of one shape, got {} and {}".format(
+            tuple(spec_re.shape), tuple(spec_im.shape)))
+    if spec_re.device != spec_im.device:
+        raise ValueError("spec_re and spec_im lie on {} and {}".format(spec_re.device, spec_im.device))
+    F, N, C = spec_re.shape
+    if spec_re.device.type == "cpu":
+        return csd_accumulate_plain(spec_re, spec_im)
+    if spec_re.device.type != "cuda":
+        raise ValueError("csd_accumulate runs on cpu or cuda, not {}".format(spec_re.device))
+    if spec_re.dtype != torch.float32 or spec_im.dtype != torch.float32:
+        raise TypeError("spec planes must be float32, got {} and {}".format(spec_re.dtype, spec_im.dtype))
+    if not (spec_re.is_contiguous() and spec_im.is_contiguous()):
+        raise ValueError("spec planes must be contiguous")
+    lib = load_csd_kernel()
+    out_re = torch.empty((F, C, C), dtype=torch.float32, device=spec_re.device)
+    out_im = torch.empty_like(out_re)
+    if out_re.numel() == 0:
+        return out_re, out_im
+    with torch.cuda.device(spec_re.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.csd_accumulate_launch(
+            spec_re.data_ptr(), spec_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            F, N, C, stream,
+        )
+    if rc != 0:
+        raise RuntimeError("csd_accumulate kernel launch failed: cudaError {}".format(rc))
+    csd_accumulate.launches += 1
+    return out_re, out_im
+
+
+#: kernel launches since the last reset (set to 0 to start a count)
+csd_accumulate.launches = 0

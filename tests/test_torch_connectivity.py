@@ -187,7 +187,7 @@ def test_launch_counter_stays_zero_on_cpu():
     assert csd_kernels.csd_accumulate_tiled.launches == 0
 
 
-@pytest.mark.parametrize("method", ["granger", "csd", "corr", "ppc"])
+@pytest.mark.parametrize("method", ["granger", "corr"])
 def test_other_methods_not_ported_yet(method):
     pdata, _ = _both([200] * 4, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue"):

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
-# Card-only tests of the port: the CUDA CSD kernel against a complex128
-# oracle and its plain version, and the coherence main path on the card
-# against the same path on the CPU. They skip where no CUDA device is
-# present (the kernel has no CPU mode). This file imports no jax, so on a
+# Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
+# PPC resultant) against complex128 oracles and their plain versions, and
+# the coherence and PPC main paths on the card against the same paths on
+# the CPU. They skip where no CUDA device is present (the kernels have no
+# CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 import syncopy_tpu_torch as spt
 from syncopy_tpu_torch.engine import routine
 from syncopy_tpu_torch.ops import csd_kernels as ck
+from syncopy_tpu_torch.ops import ppc_kernels as pk
 
 torch.set_num_threads(1)
 
@@ -32,9 +34,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _spec(N, F, C, seed):
+def _spec(*shape, seed):
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(N, F, C)) + 1j * rng.normal(size=(N, F, C))).astype(np.complex64)
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+
+def _ragged_analog(seed):
+    lens = [400] * 9 + [300] * 4
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(sum(lens), 6)).astype(np.float32)
+    trl = np.zeros((len(lens), 3))
+    trl[:, 1] = np.cumsum(lens)
+    trl[1:, 0] = trl[:-1, 1]
+    return spt.from_arrays(data, trl, 1000.0)
 
 
 @pytest.mark.cuda
@@ -77,17 +89,133 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 def test_coherence_on_card_matches_cpu(cuda_device, monkeypatch):
     """The main path on the card (multi-chunk, ragged) against the same
     path on the CPU, where the kernel's plain version runs."""
-    lens = [400] * 9 + [300] * 4
-    rng = np.random.default_rng(3)
-    data = rng.normal(size=(sum(lens), 6)).astype(np.float32)
-    trl = np.zeros((len(lens), 3))
-    trl[:, 1] = np.cumsum(lens)
-    trl[1:, 0] = trl[:-1, 1]
-    adata = spt.from_arrays(data, trl, 1000.0)
+    adata = _ragged_analog(3)
     monkeypatch.setattr(routine, "DEFAULT_CHUNK_BUDGET", 4 * 400 * 6 * 4 * 2)
     ck.csd_accumulate_tiled.launches = 0
     got = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
     assert ck.csd_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
     monkeypatch.setattr(routine, "default_device", lambda: torch.device("cpu"))
     want = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
+    assert np.abs(got - want).max() < 1e-5
+
+
+# -- the untiled csd_accumulate ---------------------------------------------- #
+
+#: (F, N, C): test_connectivity.py's case, the pallas_supported() probe,
+#: more channels than one tile and more rows than one 256-row group
+UNTILED = [(5, 12, 8), (1, 8, 128), (17, 600, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F, N, C", UNTILED)
+def test_untiled_kernel_matches_oracle_and_plain(cuda_device, F, N, C):
+    spec = _spec(F, N, C, seed=F + N)
+    want = np.einsum("fni,fnj->fij", spec.astype(np.complex128), np.conj(spec.astype(np.complex128)))
+    re = torch.from_numpy(spec.real.copy()).to(cuda_device)
+    im = torch.from_numpy(spec.imag.copy()).to(cuda_device)
+    before = ck.csd_accumulate.launches
+    got_re, got_im = ck.csd_accumulate(re, im)
+    plain_re, plain_im = ck.csd_accumulate_plain(re, im)
+    torch.cuda.synchronize()
+    assert ck.csd_accumulate.launches == before + 1
+    got = got_re.cpu().numpy() + 1j * got_im.cpu().numpy()
+    plain = plain_re.cpu().numpy() + 1j * plain_im.cpu().numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() / scale < REL_TOL
+    assert np.abs(plain - want).max() / scale < REL_TOL
+    assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+
+
+@pytest.mark.cuda
+def test_untiled_kernel_single_row(cuda_device):
+    one = torch.zeros((2, 1, 4), device=cuda_device)
+    one[0, 0, 1] = 2.0
+    cs_re, cs_im = ck.csd_accumulate(one, torch.zeros_like(one))
+    want = torch.zeros((2, 4, 4))
+    want[0, 1, 1] = 4.0
+    assert torch.equal(cs_re.cpu(), want) and not cs_im.any()
+
+
+@pytest.mark.cuda
+def test_untiled_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((3, 4, 2), device=cuda_device)
+    with pytest.raises(TypeError):
+        ck.csd_accumulate(x.double(), x.double())
+    with pytest.raises(ValueError):
+        ck.csd_accumulate(x.transpose(0, 1), x.transpose(0, 1))
+    with pytest.raises(ValueError):
+        ck.csd_accumulate(x, x.cpu())
+
+
+# -- the PPC resultant ------------------------------------------------------- #
+
+#: (N, K, F, C, n_valid, NaN trials past n_valid): block-unaligned, full
+#: count, NaN padding, three channel tiles with K = 5, K = 1
+PPC_CASES = [(21, 3, 11, 8, 17, False), (16, 2, 8, 4, 16, False), (13, 2, 9, 6, 9, True),
+             (37, 5, 7, 70, 30, True), (9, 1, 4, 33, 9, False)]
+
+
+def _ppc_oracle(spec, n_valid):
+    s = spec[:n_valid].astype(np.complex128)
+    csd = np.einsum("nkfi,nkfj->nfij", s, np.conj(s))
+    mag = np.abs(csd)
+    return np.where(mag > 0, csd / np.where(mag > 0, mag, 1.0), 0.0).sum(axis=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, K, F, C, nv, nan_trials", PPC_CASES)
+def test_ppc_kernel_matches_oracle_and_plain(cuda_device, N, K, F, C, nv, nan_trials):
+    spec = _spec(N, K, F, C, seed=N + C)
+    want = _ppc_oracle(spec, nv)
+    if nan_trials:
+        spec[nv:] = np.nan
+    dev = torch.from_numpy(spec).to(cuda_device)
+    before = pk.ppc_accumulate_tiled.launches
+    got = pk.ppc_accumulate_tiled(dev, nv)
+    plain = pk.ppc_accumulate_tiled_plain(dev, nv)
+    torch.cuda.synchronize()
+    assert pk.ppc_accumulate_tiled.launches == before + 1
+    got, plain = got.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / nv < REL_TOL
+    assert np.abs(plain - want).max() / nv < REL_TOL
+    diag = got[:, np.arange(C), np.arange(C)]
+    assert np.allclose(diag.real, nv, atol=1e-3) and np.all(diag.imag == 0)
+    assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+
+
+@pytest.mark.cuda
+def test_ppc_kernel_zero_trials_and_zero_bins(cuda_device):
+    spec = torch.full((4, 1, 3, 4), float("nan"), dtype=torch.complex64, device=cuda_device)
+    assert bool((pk.ppc_accumulate_tiled(spec, 0) == 0).all())
+    spec = torch.from_numpy(_spec(6, 2, 5, 3, seed=2))
+    spec[:, :, 1] = 0
+    got = pk.ppc_accumulate_tiled(spec.to(cuda_device), 6).cpu()
+    assert bool(torch.isfinite(got).all()) and bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_ppc_kernel_rejects_what_it_does_not_take(cuda_device):
+    spec = torch.zeros((4, 2, 3, 2), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(TypeError):
+        pk.ppc_accumulate_tiled(spec.to(torch.complex128), 2)
+    with pytest.raises(ValueError):
+        pk.ppc_accumulate_tiled(spec.transpose(2, 3), 2)
+    with pytest.raises(ValueError):
+        pk.ppc_accumulate_tiled(spec, 5)
+    with pytest.raises(ValueError):
+        pk.ppc_accumulate_tiled(spec[0], 1)
+
+
+@pytest.mark.cuda
+def test_ppc_on_card_matches_cpu(cuda_device, monkeypatch):
+    """method="ppc" on the card (multi-chunk, ragged) against the same
+    call on the CPU, where the kernel's plain version runs."""
+    adata = _ragged_analog(4)
+    monkeypatch.setattr(routine, "DEFAULT_CHUNK_BUDGET", 4 * 400 * 6 * 4 * 2)
+    pk.ppc_accumulate_tiled.launches = 0
+    got = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
+    assert pk.ppc_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
+    monkeypatch.setattr(routine, "default_device", lambda: torch.device("cpu"))
+    want = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
     assert np.abs(got - want).max() < 1e-5
