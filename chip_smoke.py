@@ -12,11 +12,14 @@ Phases, each of which raises on failure (non-zero exit):
 2. build: compiles the two CUDA libraries from csrc/ (three kernels) in
    parallel, one nvcc each, and prints the seconds of each;
 3. kernel: csd_accumulate_tiled on the card against its plain PyTorch
-   version and a complex128 oracle at four shapes, incl. NaN padding rows
-   and n_valid = 0; times kernel and plain version at the bench shape;
+   version and a complex128 oracle at seven shapes, incl. NaN padding
+   rows, n_valid = 0, n_valid ending inside a staging stage and odd C
+   (33, 70); two launches bitwise equal; times kernel, plain version and
+   the library call (one complex64 einsum) at the bench shape;
 4. kernel: csd_accumulate (untiled, (F, N, C) float32 planes) against its
-   plain version and a complex128 oracle at four shapes; timed at
-   (501, 3000, 64);
+   plain version and a complex128 oracle at six shapes, incl. odd C;
+   two launches bitwise equal; kernel, plain version and the library
+   call (one complex matmul) timed at (501, 3000, 64);
 5. kernel: ppc_accumulate_tiled against its plain version and a
    complex128 oracle at six shapes, incl. NaN padding trials, n_valid = 0
    and three channel tiles; timed at the bench chunk (1024, 3, 501, 64);
@@ -29,8 +32,10 @@ Phases, each of which raises on failure (non-zero exit):
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
 kernel's launches (csd_accumulate is on no path of the port: the JAX
-package calls it only from its Pallas probe), error and times; the last
-line is ``{"ok": true, "device": {...}}``.
+package calls it only from its Pallas probe), error, times and bound (the
+least time the card could take: operations over the FP32 peak against
+bytes over the HBM rate, from this run's shapes); the last line is
+``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
 """
 
 import json
@@ -54,6 +59,48 @@ PPC_KERNEL_TOL = 1e-5
 PPC_ABS_TOL = 1e-5
 
 N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
+
+#: the H100 SXM's published peaks: FP32 outside the tensor cores, HBM
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the FP32 peak
+    and bytes (each input read once, each output written once) over the
+    HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def csd_bound(F, n, C):
+    """The CSD kernels' bound: the upper triangle's 8 FP32 operations per
+    (row, f, i <= j) against n complex64 rows in and (F, C, C) complex64
+    out."""
+    return bound(8 * F * n * C * (C + 1) / 2, F * n * C * 8 + F * C * C * 8)
+
+
+def ppc_bound(F, n, K, C):
+    """The PPC kernel's bound: per (trial, f, i <= j) term ~(8K + 6) FP32
+    operations (the K-taper Gram, 8K; magnitude, IEEE sqrt and reciprocal,
+    the scaled phasor into U, ~6: 30 at K = 3) against n * K complex64
+    rows in and (F, C, C) complex64 out."""
+    return bound((8 * K + 6) * F * n * C * (C + 1) / 2, F * n * K * C * 8 + F * C * C * 8)
+
+
+def check_deterministic(name, fn):
+    """Two launches of a kernel on one input must be bitwise equal."""
+    import torch
+
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if isinstance(first, tuple):
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+    else:
+        same = torch.equal(first, second)
+    if not same:
+        raise AssertionError("{}: two launches differ".format(name))
+    print("{}: two launches bitwise equal".format(name))
 
 
 def cuda_ms(fn, reps=20, warmup=2):
@@ -267,6 +314,9 @@ def main():
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import syncopy_tpu_torch as spt
+    spt.set_device("cuda:0")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must stay off for the float32 matmuls")
     from syncopy_tpu_torch.engine.routine import chunk_trials
     from syncopy_tpu_torch.ops import csd_kernels as ck
     from syncopy_tpu_torch.ops import ppc_kernels as pk
@@ -287,6 +337,10 @@ def main():
     for name, seconds in builds.items():
         print("build {}: {:.2f} s (nvcc, then load)".format(name, seconds))
     print("build, both libraries: {:.2f} s".format(time.perf_counter() - t0))
+    for planar, name in [(False, "csd_accumulate_tiled"), (True, "csd_accumulate")]:
+        threads, blocks = ck.kernel_occupancy(planar)
+        print("{}: {} threads a block, {} blocks ({} warps) resident per SM".format(
+            name, threads, blocks, threads * blocks // 32))
 
     # -- 3. kernel against plain version and oracle ----------------------- #
     for seed, (N, F, C, nv, nan_rows) in enumerate([
@@ -294,26 +348,45 @@ def main():
         (40, 17, 8, 25, True),
         (3, 2, 4, 3, False),
         (3, 2, 4, 0, False),
+        # the staging ring's edges: n_valid inside a 32-row stage and off
+        # the 3-stage ring, NaN rows behind it; odd C past one 32-wide tile
+        (64, 5, 33, 37, True),
+        (320, 3, 70, 301, True),
     ]):
         check_kernel(ck, N, F, C, nv, nan_rows, seed)
     bench_n_valid = N_TRIALS * 3
     bench_err, spec = check_kernel(ck, 3072, 501, N_CHANNELS, bench_n_valid, True, 7)
+    check_deterministic("csd_accumulate_tiled at (3072, 501, 64, 3000)",
+                        lambda: ck.csd_accumulate_tiled(spec, bench_n_valid))
     kernel_ms = cuda_ms(lambda: ck.csd_accumulate_tiled(spec, bench_n_valid))
     plain_ms = cuda_ms(lambda: ck.csd_accumulate_tiled_plain(spec, bench_n_valid))
-    print("kernel at (3072, 501, 64, 3000): {:.4f} ms, plain version {:.4f} ms "
-          "(median of 20, CUDA events)".format(kernel_ms, plain_ms))
-    del spec
+    s_valid = spec[:bench_n_valid]
+    library_ms = cuda_ms(lambda: torch.einsum("nfi,nfj->fij", s_valid, s_valid.conj()))
+    bound_ms, bound_by = csd_bound(501, bench_n_valid, N_CHANNELS)
+    print("kernel at (3072, 501, 64, 3000): {:.4f} ms, plain version {:.4f} ms, library "
+          "(einsum) {:.4f} ms (median of 20, CUDA events); bound {:.4f} ms ({}), {:.1f}% of "
+          "it".format(kernel_ms, plain_ms, library_ms, bound_ms, bound_by,
+                      100 * bound_ms / kernel_ms))
+    del spec, s_valid
     torch.cuda.empty_cache()
 
     # -- 4. untiled kernel against plain version and oracle --------------- #
-    for seed, (F, N, C) in enumerate([(5, 12, 8), (2, 1, 4), (1, 8, 128)]):
+    for seed, (F, N, C) in enumerate([(5, 12, 8), (2, 1, 4), (1, 8, 128), (3, 37, 33),
+                                      (2, 301, 70)]):
         check_untiled(ck, F, N, C, 20 + seed)
-    untiled_err, re, im = check_untiled(ck, 501, 3000, N_CHANNELS, 23)
+    untiled_err, re, im = check_untiled(ck, 501, 3000, N_CHANNELS, 26)
+    check_deterministic("csd_accumulate at (501, 3000, 64)", lambda: ck.csd_accumulate(re, im))
     untiled_ms = cuda_ms(lambda: ck.csd_accumulate(re, im))
     untiled_plain_ms = cuda_ms(lambda: ck.csd_accumulate_plain(re, im))
-    print("untiled kernel at (501, 3000, 64): {:.4f} ms, plain version {:.4f} ms "
-          "(median of 20, CUDA events)".format(untiled_ms, untiled_plain_ms))
-    del re, im
+    z = torch.complex(re, im)
+    untiled_library_ms = cuda_ms(lambda: torch.matmul(z.transpose(1, 2), z.conj()))
+    untiled_bound_ms, untiled_bound_by = csd_bound(501, 3000, N_CHANNELS)
+    print("untiled kernel at (501, 3000, 64): {:.4f} ms, plain version {:.4f} ms, library "
+          "(complex matmul) {:.4f} ms (median of 20, CUDA events); bound {:.4f} ms ({}), "
+          "{:.1f}% of it".format(untiled_ms, untiled_plain_ms, untiled_library_ms,
+                                 untiled_bound_ms, untiled_bound_by,
+                                 100 * untiled_bound_ms / untiled_ms))
+    del re, im, z
     torch.cuda.empty_cache()
 
     # -- 5. PPC kernel against plain version and oracle -------------------- #
@@ -328,8 +401,11 @@ def main():
     ppc_err, spec = check_ppc(pk, 1024, 3, 501, N_CHANNELS, N_TRIALS, True, 36)
     ppc_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled(spec, N_TRIALS))
     ppc_plain_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled_plain(spec, N_TRIALS), reps=5, warmup=1)
+    # no single PyTorch call computes the resultant of unit per-trial CSDs
+    ppc_bound_ms, ppc_bound_by = ppc_bound(501, N_TRIALS, 3, N_CHANNELS)
     print("ppc kernel at (1024, 3, 501, 64, 1000): {:.4f} ms (median of 20), plain version "
-          "{:.4f} ms (median of 5), CUDA events".format(ppc_ms, ppc_plain_ms))
+          "{:.4f} ms (median of 5), CUDA events; bound {:.4f} ms ({}), {:.1f}% of it".format(
+              ppc_ms, ppc_plain_ms, ppc_bound_ms, ppc_bound_by, 100 * ppc_bound_ms / ppc_ms))
     del spec
     torch.cuda.empty_cache()
 
@@ -422,6 +498,9 @@ def main():
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
     }, {
         "name": "csd_accumulate",
         "route": "cuda",
@@ -431,6 +510,9 @@ def main():
         "max_abs_err": untiled_err,
         "ms": untiled_ms,
         "plain_ms": untiled_plain_ms,
+        "bound_ms": untiled_bound_ms,
+        "bound_by": untiled_bound_by,
+        "library_ms": untiled_library_ms,
     }, {
         "name": "ppc_accumulate_tiled",
         "route": "cuda",
@@ -440,6 +522,9 @@ def main():
         "max_abs_err": ppc_err,
         "ms": ppc_ms,
         "plain_ms": ppc_plain_ms,
+        "bound_ms": ppc_bound_ms,
+        "bound_by": ppc_bound_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

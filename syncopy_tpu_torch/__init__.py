@@ -17,6 +17,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .datatype import AnalogData, CrossSpectralData, SpectralData, Selector  # noqa: E402
 from .connectivity import connectivityanalysis  # noqa: E402
+from .engine.routine import set_device  # noqa: E402
 
 __all__ = [
     "AnalogData",
@@ -25,6 +26,7 @@ __all__ = [
     "Selector",
     "connectivityanalysis",
     "from_arrays",
+    "set_device",
 ]
 
 

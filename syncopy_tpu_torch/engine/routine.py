@@ -21,7 +21,7 @@ import torch
 
 from ..shared.errors import SPYError, SPYValueError
 
-__all__ = ["ComputationalRoutine", "chunk_trials", "default_device"]
+__all__ = ["ComputationalRoutine", "chunk_trials", "default_device", "set_device"]
 
 #: device-memory budget per compute chunk (bytes)
 DEFAULT_CHUNK_BUDGET = 2 * 1024**3
@@ -30,9 +30,35 @@ DEFAULT_CHUNK_BUDGET = 2 * 1024**3
 MAX_CHUNK_TRIALS = 1024
 
 
+#: the device every engine entry point computes on (see set_device)
+_device = torch.device("cuda", 0)
+
+
+def set_device(device):
+    """
+    Set the device the port computes on: ``"cuda:0"`` (the default) or
+    another CUDA device, or ``"cpu"``, where every kernel takes its plain
+    PyTorch version. Returns the previous setting.
+    """
+    global _device
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError("the port runs on cpu or cuda, not {}".format(device))
+    previous, _device = _device, device
+    return previous
+
+
 def default_device():
-    """The first CUDA device when one is present, else the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """
+    The device of the setting (:func:`set_device`). A CUDA setting with no
+    card present raises RuntimeError: the port never falls back to the CPU
+    unless asked.
+    """
+    if _device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available for the port's default device {}; call "
+            "syncopy_tpu_torch.set_device(\"cpu\") to compute on the CPU".format(_device))
+    return _device
 
 
 def chunk_trials(per_trial_bytes, n_trials, budget=None):

@@ -8,16 +8,23 @@
 # csd_accumulate_tiled (body _csd_tiled_kernel) and csd_accumulate (body
 # _csd_kernel, the untiled per-frequency Gram; in the JAX package only the
 # pallas_supported() probe calls it). One templated kernel body serves
-# both: it differs only in how a row is loaded and a result stored.
+# both: each layout's row loader owns the asynchronous copy of its rows into
+# shared memory and the read of a staged element; the result writer owns
+# the store.
 #
-# Bounded on the H100 by the FP32 FMA pipes: 8*F*N*C^2 ~ 49 GFLOP at the
-# bench shape (N=3000 rows, F=501, C=64), about half that with Hermitian
-# symmetry, over a 0.77 GB spectrum (an estimate from shapes, not a
-# measurement). Tensor cores stay unused because TF32 would break the 1e-5
-# relative bar. The kernel reads its input in place, computes only the
-# i <= j channel tiles and mirrors them, and keeps the tiled TPU kernel's
-# numerics (256-row float32 groups, TwoSum across groups, rows past
-# n_valid never read).
+# The body (see the source's header): one 128-thread block per (frequency,
+# 32x32 tile with i <= j), two 64-thread slices splitting the rows; a ring
+# of three 32-row stages filled by cp.async (16-byte chunks where aligned,
+# zero-fill for rows at or past n_valid and channels at or past C, so NaN
+# padding is never read); diagonal tiles stage once and skip the quarter
+# below the diagonal; each slice keeps the (hi, lo) of the outputs it owns
+# in registers and the slices swap group partials through shared memory;
+# four blocks (16 warps) per SM. The numerics are the tiled TPU kernel's:
+# 256-row float32 groups combined by TwoSum, no TF32, no tensor cores, one
+# writer per element and no atomics (bitwise deterministic). Bounded on the H100 by the FP32 pipes: the upper
+# triangle is 8*F*n*C(C+1)/2 = 25.0 GFLOP at the bench shape (n = 3000,
+# F = 501, C = 64), 0.373 ms at 67 TFLOP/s, against 0.79 GB of input and
+# output, 0.235 ms at 3.35 TB/s (estimates from shapes, not measurements).
 
 import ctypes
 
@@ -27,7 +34,7 @@ from ._nvcc import load_library
 from .connectivity import gram_sum_twosum
 
 __all__ = ["csd_accumulate", "csd_accumulate_plain", "csd_accumulate_tiled",
-           "csd_accumulate_tiled_plain", "load_csd_kernel"]
+           "csd_accumulate_tiled_plain", "load_csd_kernel", "kernel_occupancy"]
 
 #: rows per float32 group before the TwoSum (the TPU kernel's row_block)
 ROW_BLOCK = 256
@@ -45,7 +52,24 @@ def load_csd_kernel():
     lib.csd_accumulate_tiled_launch.restype = ctypes.c_int
     lib.csd_accumulate_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.csd_accumulate_launch.restype = ctypes.c_int
+    lib.csd_accumulate_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.csd_accumulate_occupancy.restype = ctypes.c_int
     return lib
+
+
+def kernel_occupancy(planar=False):
+    """
+    ``(threads per block, resident blocks per SM)`` that the CUDA runtime
+    grants the interleaved (tiled) or the planar (untiled) instance of the
+    kernel on the current card.
+    """
+    lib = load_csd_kernel()
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.csd_accumulate_occupancy(int(planar), ctypes.byref(threads), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError("csd_accumulate occupancy query failed: cudaError {}".format(rc))
+    return threads.value, blocks.value
 
 
 def csd_accumulate_tiled_plain(spec, n_valid):

@@ -23,6 +23,14 @@ from syncopy_tpu_torch.shared.errors import SPYValueError
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """Ask the port for the CPU explicitly; restore the setting after."""
+    previous = spt.set_device("cpu")
+    yield
+    spt.set_device(previous)
+
 COH_TOL = 1e-5
 FS = 1000.0
 

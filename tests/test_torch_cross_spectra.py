@@ -20,6 +20,14 @@ from syncopy_tpu_torch.engine import routine
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """Ask the port for the CPU explicitly; restore the setting after."""
+    previous = routine.set_device("cpu")
+    yield
+    routine.set_device(previous)
+
 FS = 1000.0
 
 

@@ -94,9 +94,41 @@ def test_coherence_on_card_matches_cpu(cuda_device, monkeypatch):
     ck.csd_accumulate_tiled.launches = 0
     got = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
     assert ck.csd_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
-    monkeypatch.setattr(routine, "default_device", lambda: torch.device("cpu"))
-    want = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
+    spt.set_device("cpu")
+    try:
+        want = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
+    finally:
+        spt.set_device("cuda:0")
     assert np.abs(got - want).max() < 1e-5
+
+
+#: (N, F, C, n_valid): the staging ring at its edges. n_valid ends inside a
+#: 32-row stage and off the 3-stage ring, with NaN rows behind it; odd C
+#: (33, 65) and C = 70 put some rows' chunks off 16-byte alignment; C = 1
+#: leaves one valid channel of one chunk; 300 and 513 cross a 256-row group
+STAGE_EDGES = [(64, 5, 33, 37), (320, 3, 70, 301), (50, 4, 1, 49), (530, 2, 65, 513),
+               (40, 3, 64, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, F, C, nv", STAGE_EDGES)
+def test_kernel_stage_edges_and_odd_channels(cuda_device, N, F, C, nv):
+    spec = _spec(N, F, C, seed=N + C)
+    rows = spec[:nv].astype(np.complex128)
+    want = np.einsum("nfi,nfj->fij", rows, np.conj(rows))
+    spec[nv:] = np.nan  # the padding the kernel must never read
+    got = ck.csd_accumulate_tiled(torch.from_numpy(spec).to(cuda_device), nv).cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / np.abs(want).max() < REL_TOL
+    assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+    assert np.all(np.diagonal(got, axis1=1, axis2=2).imag == 0)
+
+
+@pytest.mark.cuda
+def test_kernel_bitwise_deterministic(cuda_device):
+    dev = torch.from_numpy(_spec(600, 5, 70, seed=5)).to(cuda_device)
+    dev[555:] = float("nan")
+    assert torch.equal(ck.csd_accumulate_tiled(dev, 555), ck.csd_accumulate_tiled(dev, 555))
 
 
 # -- the untiled csd_accumulate ---------------------------------------------- #
@@ -124,6 +156,35 @@ def test_untiled_kernel_matches_oracle_and_plain(cuda_device, F, N, C):
     assert np.abs(got - want).max() / scale < REL_TOL
     assert np.abs(plain - want).max() / scale < REL_TOL
     assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+
+
+#: (F, N, C): N off the stage and the ring, odd and unaligned C (see
+#: STAGE_EDGES), one channel, N across a 256-row group
+UNTILED_EDGES = [(3, 37, 33), (2, 301, 70), (4, 49, 1), (2, 513, 65), (3, 17, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F, N, C", UNTILED_EDGES)
+def test_untiled_kernel_stage_edges_and_odd_channels(cuda_device, F, N, C):
+    spec = _spec(F, N, C, seed=F * N + C)
+    z = spec.astype(np.complex128)
+    want = np.einsum("fni,fnj->fij", z, np.conj(z))
+    re = torch.from_numpy(spec.real.copy()).to(cuda_device)
+    im = torch.from_numpy(spec.imag.copy()).to(cuda_device)
+    got_re, got_im = ck.csd_accumulate(re, im)
+    got = got_re.cpu().numpy() + 1j * got_im.cpu().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < REL_TOL
+    assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+    assert not got_im.cpu()[:, torch.arange(C), torch.arange(C)].any()
+
+
+@pytest.mark.cuda
+def test_untiled_kernel_bitwise_deterministic(cuda_device):
+    spec = _spec(5, 600, 70, seed=6)
+    re = torch.from_numpy(spec.real.copy()).to(cuda_device)
+    im = torch.from_numpy(spec.imag.copy()).to(cuda_device)
+    first, second = ck.csd_accumulate(re, im), ck.csd_accumulate(re, im)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
@@ -216,6 +277,9 @@ def test_ppc_on_card_matches_cpu(cuda_device, monkeypatch):
     pk.ppc_accumulate_tiled.launches = 0
     got = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
     assert pk.ppc_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
-    monkeypatch.setattr(routine, "default_device", lambda: torch.device("cpu"))
-    want = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
+    spt.set_device("cpu")
+    try:
+        want = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
+    finally:
+        spt.set_device("cuda:0")
     assert np.abs(got - want).max() < 1e-5

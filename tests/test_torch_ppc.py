@@ -27,6 +27,14 @@ from syncopy_tpu_torch.shared.errors import SPYTypeError, SPYValueError
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """Ask the port for the CPU explicitly; restore the setting after."""
+    previous = spt.set_device("cpu")
+    yield
+    spt.set_device(previous)
+
 FS = 1000.0
 #: PPC is a difference of O(1) terms: bars are absolute
 PPC_TOL = 1e-5
