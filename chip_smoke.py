@@ -21,13 +21,17 @@ Phases, each of which raises on failure (non-zero exit):
    two launches bitwise equal; kernel, plain version and the library
    call (one complex matmul) timed at (501, 3000, 64);
 5. kernel: ppc_accumulate_tiled against its plain version and a
-   complex128 oracle at six shapes, incl. NaN padding trials, n_valid = 0
-   and three channel tiles; timed at the bench chunk (1024, 3, 501, 64);
+   complex128 oracle at eleven shapes, incl. NaN padding trials,
+   n_valid = 0, K = 1, 4, 5 and 9 (the run-time-K instance), C = 33, 70
+   and 128, and at spectrum scales 1e-13 and 1e10 (where the unit phasor
+   must stay exact); timed at the bench chunk (1024, 3, 501, 64);
 6. coh main path: connectivityanalysis(method="coh", tapsmofrq=2) on 1000
    trials x 64 channels x 1000 samples at 1 kHz (float32, seed 0),
    checked against a float64 computation of the same math, then timed;
 7. ppc main path: connectivityanalysis(method="ppc", tapsmofrq=2) on the
-   same data, checked against a float64 computation, then timed.
+   same data, checked against a float64 computation, then timed; then
+   once more on the data x 1e-13 (MEG in tesla), checked against the
+   float64 PPC of that data.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
@@ -211,19 +215,23 @@ def ppc_oracle(spec, n_valid, chunk=32):
     return U
 
 
-def check_ppc(pk, N, K, F, C, n_valid, nan_trials, seed):
-    """One ppc_accumulate_tiled case; returns (max_abs_err, spec) or raises."""
+def check_ppc(pk, N, K, F, C, n_valid, nan_trials, seed, scale=1.0):
+    """One ppc_accumulate_tiled case on a spectrum of standard normal
+    values times `scale`; returns (max_abs_err, spec) or raises."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     spec = torch.randn((N, K, F, C), dtype=torch.complex64, device="cuda", generator=gen)
+    if scale != 1.0:
+        spec *= scale
     if nan_trials:
         spec[n_valid:] = float("nan")
     got = pk.ppc_accumulate_tiled(spec, n_valid)
     plain = pk.ppc_accumulate_tiled_plain(spec, n_valid)
     torch.cuda.synchronize()
-    name = "(N, K, F, C, n_valid) = ({}, {}, {}, {}, {}){}".format(
-        N, K, F, C, n_valid, " NaN trials" if nan_trials else "")
+    name = "(N, K, F, C, n_valid) = ({}, {}, {}, {}, {}){}{}".format(
+        N, K, F, C, n_valid, " NaN trials" if nan_trials else "",
+        "" if scale == 1.0 else " x {:g}".format(scale))
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("ppc kernel output not finite at " + name)
     if n_valid == 0:
@@ -341,6 +349,10 @@ def main():
         threads, blocks = ck.kernel_occupancy(planar)
         print("{}: {} threads a block, {} blocks ({} warps) resident per SM".format(
             name, threads, blocks, threads * blocks // 32))
+    ppc_threads, ppc_blocks = pk.kernel_occupancy(3)
+    ppc_warps = ppc_threads * ppc_blocks // 32
+    print("ppc_accumulate_tiled (K = 3): {} threads a block, {} blocks ({} warps) resident "
+          "per SM".format(ppc_threads, ppc_blocks, ppc_warps))
 
     # -- 3. kernel against plain version and oracle ----------------------- #
     for seed, (N, F, C, nv, nan_rows) in enumerate([
@@ -390,22 +402,34 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. PPC kernel against plain version and oracle -------------------- #
-    for seed, (N, K, F, C, nv, nan_trials) in enumerate([
-        (21, 3, 11, 8, 17, False),
-        (16, 2, 8, 4, 16, False),
-        (13, 2, 9, 6, 9, True),
-        (4, 1, 3, 4, 0, False),
-        (37, 5, 7, 70, 30, False),
+    for seed, (N, K, F, C, nv, nan_trials, scale) in enumerate([
+        (21, 3, 11, 8, 17, False, 1.0),
+        (16, 2, 8, 4, 16, False, 1.0),
+        (13, 2, 9, 6, 9, True, 1.0),
+        (4, 1, 3, 4, 0, False, 1.0),
+        (37, 5, 7, 70, 30, False, 1.0),
+        # K = 1 and 4 with n_valid inside a stage, C = 33 and 128, the
+        # run-time-K instance (K = 9), and spectra at MEG scale (1e-13,
+        # |csd| ~ 1e-26, where the JAX body's squares underflow) and 1e10
+        (40, 1, 9, 33, 37, True, 1.0),
+        (24, 4, 5, 128, 21, True, 1.0),
+        (30, 9, 4, 40, 27, True, 1.0),
+        (64, 3, 21, 64, 61, True, 1e-13),
+        (64, 3, 21, 64, 61, True, 1e10),
     ]):
-        check_ppc(pk, N, K, F, C, nv, nan_trials, 30 + seed)
+        check_ppc(pk, N, K, F, C, nv, nan_trials, 30 + seed, scale)
+    check_ppc(pk, 1024, 3, 501, N_CHANNELS, N_TRIALS, True, 36, 1e-13)
     ppc_err, spec = check_ppc(pk, 1024, 3, 501, N_CHANNELS, N_TRIALS, True, 36)
+    check_deterministic("ppc_accumulate_tiled at (1024, 3, 501, 64, 1000)",
+                        lambda: pk.ppc_accumulate_tiled(spec, N_TRIALS))
     ppc_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled(spec, N_TRIALS))
     ppc_plain_ms = cuda_ms(lambda: pk.ppc_accumulate_tiled_plain(spec, N_TRIALS), reps=5, warmup=1)
     # no single PyTorch call computes the resultant of unit per-trial CSDs
     ppc_bound_ms, ppc_bound_by = ppc_bound(501, N_TRIALS, 3, N_CHANNELS)
     print("ppc kernel at (1024, 3, 501, 64, 1000): {:.4f} ms (median of 20), plain version "
-          "{:.4f} ms (median of 5), CUDA events; bound {:.4f} ms ({}), {:.1f}% of it".format(
-              ppc_ms, ppc_plain_ms, ppc_bound_ms, ppc_bound_by, 100 * ppc_bound_ms / ppc_ms))
+          "{:.4f} ms (median of 5), CUDA events; bound {:.4f} ms ({}), {:.1f}% of it; {} warps "
+          "per SM".format(ppc_ms, ppc_plain_ms, ppc_bound_ms, ppc_bound_by,
+                          100 * ppc_bound_ms / ppc_ms, ppc_warps))
     del spec
     torch.cuda.empty_cache()
 
@@ -488,6 +512,19 @@ def main():
     wall = statistics.median(walls)
     print("ppc main path warm wall: median {:.4f} s of 5 ({}), {:.1f} trials/s".format(
         wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
+
+    # the same call on data in tesla (MEG): PPC is invariant to the scale
+    tiny = data * np.float32(1e-13)
+    got = np.asarray(spt.connectivityanalysis(
+        spt.from_arrays(tiny, trl, FS), method="ppc", tapsmofrq=2).data)
+    if not np.isfinite(got).all():
+        raise AssertionError("ppc at data scale 1e-13 not finite")
+    tiny_err = float(np.abs(got[0] - ppc_f64(tiny, taper, taper_opt)).max())
+    print("ppc main path at data scale 1e-13: max abs err vs float64 {:.3e}".format(tiny_err))
+    if not tiny_err < PPC_ABS_TOL:
+        raise AssertionError("ppc err at data scale 1e-13 {:.3e} >= {}".format(
+            tiny_err, PPC_ABS_TOL))
+    del tiny
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",

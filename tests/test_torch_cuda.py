@@ -39,10 +39,10 @@ def _spec(*shape, seed):
     return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
 
 
-def _ragged_analog(seed):
+def _ragged_analog(seed, scale=1.0):
     lens = [400] * 9 + [300] * 4
     rng = np.random.default_rng(seed)
-    data = rng.normal(size=(sum(lens), 6)).astype(np.float32)
+    data = (rng.normal(size=(sum(lens), 6)) * scale).astype(np.float32)
     trl = np.zeros((len(lens), 3))
     trl[:, 1] = np.cumsum(lens)
     trl[1:, 0] = trl[:-1, 1]
@@ -271,15 +271,82 @@ def test_ppc_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_ppc_on_card_matches_cpu(cuda_device, monkeypatch):
     """method="ppc" on the card (multi-chunk, ragged) against the same
-    call on the CPU, where the kernel's plain version runs."""
-    adata = _ragged_analog(4)
+    call on the CPU, where the kernel's plain version runs; also on the
+    same data x 1e-13 (MEG in tesla), where a phasor formed from unscaled
+    squares drops every term."""
     monkeypatch.setattr(routine, "DEFAULT_CHUNK_BUDGET", 4 * 400 * 6 * 4 * 2)
-    pk.ppc_accumulate_tiled.launches = 0
-    got = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
-    assert pk.ppc_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
-    spt.set_device("cpu")
-    try:
-        want = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
-    finally:
-        spt.set_device("cuda:0")
-    assert np.abs(got - want).max() < 1e-5
+    for scale in (1.0, 1e-13):
+        adata = _ragged_analog(4, scale)
+        pk.ppc_accumulate_tiled.launches = 0
+        got = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
+        assert pk.ppc_accumulate_tiled.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
+        spt.set_device("cpu")
+        try:
+            want = np.asarray(spt.connectivityanalysis(adata, method="ppc", tapsmofrq=4).data)
+        finally:
+            spt.set_device("cuda:0")
+        assert np.abs(got - want).max() < 1e-5
+
+
+#: (N, K, F, C, n_valid): every compile-time K (1..8 staged as whole
+#: trials) and the run-time-K instance (9, and 20, whose trials span
+#: stages), C at and around the 32-wide tile (1, 31, 32, 33, 64, 65, 128),
+#: n_valid ending inside a stage; NaN trials behind it
+PPC_EDGES = [(40, 1, 3, 1, 37), (36, 2, 3, 31, 33), (25, 3, 4, 32, 23), (20, 4, 3, 33, 19),
+             (18, 7, 2, 64, 17), (15, 9, 2, 65, 13), (9, 20, 2, 128, 8), (13, 3, 2, 128, 12),
+             (21, 5, 2, 65, 20), (17, 6, 2, 33, 15), (14, 8, 2, 40, 11)]
+
+
+def _ppc_case(cuda_device, N, K, F, C, nv, scale, seed):
+    spec = (_spec(N, K, F, C, seed=seed) * np.float32(scale)).astype(np.complex64)
+    want = _ppc_oracle(spec, nv)
+    spec[nv:] = np.nan
+    dev = torch.from_numpy(spec).to(cuda_device)
+    got = pk.ppc_accumulate_tiled(dev, nv)
+    plain = pk.ppc_accumulate_tiled_plain(dev, nv)
+    return got.cpu().numpy(), plain.cpu().numpy(), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, K, F, C, nv", PPC_EDGES)
+def test_ppc_kernel_stage_edges_channels_and_tapers(cuda_device, N, K, F, C, nv):
+    got, plain, want = _ppc_case(cuda_device, N, K, F, C, nv, 1.0, seed=N * K + C)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / nv < REL_TOL
+    assert np.abs(plain - want).max() / nv < REL_TOL
+    diag = np.diagonal(got, axis1=1, axis2=2)
+    assert np.all(diag.real == nv) and np.all(diag.imag == 0)
+    assert np.array_equal(got, np.conj(np.swapaxes(got, 1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-13, 1e-18, 1e10])
+def test_ppc_kernel_exact_at_every_scale(cuda_device, scale):
+    """The unit phasor does not depend on the spectrum's scale: at 1e-13
+    and 1e-18 |csd|^2 underflows float32, at 1e10 it overflows."""
+    got, plain, want = _ppc_case(cuda_device, 21, 3, 5, 33, 19, scale, seed=9)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / 19 < REL_TOL
+    assert np.abs(plain - want).max() / 19 < REL_TOL
+    assert np.all(np.diagonal(got, axis1=1, axis2=2) == 19)
+
+
+@pytest.mark.cuda
+def test_ppc_kernel_finite_on_denormal_cross_spectra(cuda_device):
+    got, plain, _ = _ppc_case(cuda_device, 21, 3, 5, 33, 19, 1e-20, seed=9)
+    assert np.isfinite(got).all() and np.isfinite(plain).all()
+    assert np.all(np.diagonal(got, axis1=1, axis2=2) == 19)
+
+
+@pytest.mark.cuda
+def test_ppc_kernel_bitwise_deterministic(cuda_device):
+    dev = torch.from_numpy(_spec(50, 3, 5, 70, seed=5)).to(cuda_device)
+    dev[45:] = float("nan")
+    assert torch.equal(pk.ppc_accumulate_tiled(dev, 45), pk.ppc_accumulate_tiled(dev, 45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 9])
+def test_ppc_kernel_occupancy(cuda_device, K):
+    threads, blocks = pk.kernel_occupancy(K)
+    assert threads == 128 and blocks >= 1

@@ -187,6 +187,20 @@ def test_ppc_matches_jax(lens, n_chan, kw):
     assert np.allclose(got[0][:, np.arange(n_chan), np.arange(n_chan)], 1.0, atol=1e-5)
 
 
+@pytest.mark.parametrize("scale", [1e-13, 1e10])
+def test_ppc_is_scale_invariant(scale):
+    """PPC depends on phases only: the same trials in tesla (MEG, 1e-13)
+    or at 1e10 give PPC at scale 1, through the fused kernel route."""
+    data, trl = _arrays([500] * 12, 4, seed=21)
+    want = np.asarray(spt.connectivityanalysis(
+        spt.from_arrays(data, trl, FS), method="ppc", tapsmofrq=2).data)
+    got = np.asarray(spt.connectivityanalysis(
+        spt.from_arrays((data * scale).astype(np.float32), trl, FS), method="ppc",
+        tapsmofrq=2).data)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < PPC_TOL
+
+
 def test_ppc_forced_multi_chunk(monkeypatch):
     """A tiny chunk budget splits 21 trials into padded chunks of 4."""
     T, C = 250, 4

@@ -64,6 +64,46 @@ def test_plain_matches_pallas_and_oracle(N, K, F, C, nv, nan_trials, seed):
     assert np.allclose(got[:, np.arange(C), np.arange(C)].real, nv, atol=1e-3)
 
 
+#: data scales: 1e-13 is MEG in tesla (|csd| ~ 1e-26, whose square
+#: underflows float32), 1e-18 puts |csd|^2 far below the denormals, 1e10
+#: overflows it
+SCALES = [1.0, 1e-13, 1e-18, 1e10]
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_plain_matches_oracle_at_every_scale(scale):
+    """The unit phasor does not depend on the spectrum's scale."""
+    N, K, F, C, nv = 21, 3, 11, 8, 17
+    spec = (_spec(N, K, F, C, seed=5) * np.float32(scale)).astype(np.complex64)
+    want = _oracle(spec, nv)
+    spec[nv:] = np.nan
+    got = pk.ppc_accumulate_tiled_plain(torch.from_numpy(spec), nv).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / nv < 1e-5
+    assert np.allclose(got[:, np.arange(C), np.arange(C)], nv, atol=1e-3)
+
+
+def test_plain_finite_on_denormal_cross_spectra():
+    """At spectrum scale 1e-20 the per-trial CSD is denormal: its phasor
+    is coarse but finite (a float32 magnitude and division gave NaN)."""
+    spec = (_spec(21, 3, 11, 8, seed=5) * np.float32(1e-20)).astype(np.complex64)
+    got = pk.ppc_accumulate_tiled_plain(torch.from_numpy(spec), 17).numpy()
+    assert np.isfinite(got).all()
+    assert np.allclose(got[:, np.arange(8), np.arange(8)], 17, atol=1e-3)
+
+
+def test_pallas_kernel_drops_terms_out_of_float32_square_range():
+    """A recorded fault of the JAX package (its kernel stays as it is): the
+    Pallas body squares the unscaled CSD, so at spectrum scale 1e-13 every
+    term underflows to 0 and is dropped, where the port's plain version
+    keeps it."""
+    spec = (_spec(21, 3, 11, 8, seed=5) * np.float32(1e-13)).astype(np.complex64)
+    want = _oracle(spec, 17)
+    assert np.abs(_jax(spec, 17)).max() == 0
+    got = pk.ppc_accumulate_tiled_plain(torch.from_numpy(spec), 17).numpy()
+    assert np.abs(got - want).max() / 17 < 1e-5
+
+
 def test_plain_ppc_value_on_full_count():
     N, K, F, C = 16, 2, 8, 4
     spec = _spec(N, K, F, C, seed=8)
@@ -97,7 +137,7 @@ def test_plain_trial_groups(monkeypatch):
     result does not depend on the grouping."""
     spec = torch.from_numpy(_spec(9, 3, 4, 5, seed=3))
     whole = pk.ppc_accumulate_tiled_plain(spec, 7)
-    monkeypatch.setattr(pk, "PLAIN_STACK_BYTES", 2 * 4 * 5 * 5 * 8)
+    monkeypatch.setattr(pk, "PLAIN_STACK_BYTES", 2 * 4 * 5 * 5 * 16)
     grouped = pk.ppc_accumulate_tiled_plain(spec, 7)
     assert torch.allclose(whole, grouped, atol=1e-5)
     assert np.abs(grouped.numpy() - _oracle(spec.numpy(), 7)).max() < ABS_TOL
