@@ -28,26 +28,47 @@ Phases, each of which raises on failure (non-zero exit):
 6. coh main path: connectivityanalysis(method="coh", tapsmofrq=2) on 1000
    trials x 64 channels x 1000 samples at 1 kHz (float32, seed 0),
    checked against a float64 computation of the same math, then timed;
+   then once more on the data x 1e-13 (MEG in tesla), checked against the
+   float64 coherence of that data;
 7. ppc main path: connectivityanalysis(method="ppc", tapsmofrq=2) on the
    same data, checked against a float64 computation, then timed; then
    once more on the data x 1e-13 (MEG in tesla), checked against the
-   float64 PPC of that data.
+   float64 PPC of that data;
+8. granger main path: connectivityanalysis(method="granger") (hann taper)
+   on 1000 trials x 64 channels x 1000 samples of a seeded AR(2) network
+   in which channel 1 drives channel 0 (the JAX package's granger_device
+   row). It must take the device route (no host fallback, no warning),
+   converge with max rel. err < 5e-6, show the drive at the 200 Hz peak
+   and match, within 1e-5, the float64 two-sided factorization of its own
+   CSD (the JAX package's host path, transcribed into torch on the card).
+   Its CSD is held against an independent float64 CSD. Prints the warm
+   wall, a stage split, both regularization routes' times, the inverse's
+   share of a Wilson step and the peak device memory; then the same at
+   128 channels (the Cholesky-bisection route), without the oracle.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
 kernel's launches (csd_accumulate is on no path of the port: the JAX
 package calls it only from its Pallas probe), error, times and bound (the
 least time the card could take: operations over the FP32 peak against
-bytes over the HBM rate, from this run's shapes); the last line is
-``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
+bytes over the HBM rate, from this run's shapes); the Granger path
+launches none of them. The last line is ``{"ok": true, "device":
+{...}}``. TF32 stays off throughout, asserted.
+
+    python3 chip_smoke.py --save-csd DIR
+
+also writes the 64-channel Granger CSD and the port's result there
+(``granger_csd64.npz``), for scripts/granger_compare_jax.py.
 """
 
+import argparse
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -62,7 +83,17 @@ PPC_KERNEL_TOL = 1e-5
 #: bar for PPC against the float64 computation (absolute)
 PPC_ABS_TOL = 1e-5
 
+#: bar for Granger against the float64 factorization of its CSD (absolute)
+GRANGER_ABS_TOL = 1e-5
+#: bar for the port's Granger CSD against an independent float64 one,
+#: relative to its maximum, off the demeaned DC bin (both round to complex64)
+GRANGER_CSD_REL_TOL = 1e-6
+
 N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
+
+#: the Granger network (the JAX package's granger_device row): AR(2)
+#: poles, the coupling channel 1 -> channel 0, the numpy seed
+AR2_ALPHAS, AR2_COUPLING, AR2_SEED = (0.55, -0.8), 0.25, 7
 
 #: the H100 SXM's published peaks: FP32 outside the tensor cores, HBM
 PEAK_FP32_FLOPS = 67e12
@@ -305,8 +336,332 @@ def coherence_f64(data, taper, taper_opt):
     return (csd.abs() / torch.sqrt(diag[:, :, None] * diag[:, None, :])).cpu().numpy()
 
 
+def ar2_network(n_chan, seed=AR2_SEED):
+    """(trials x samples, channels) float32 AR(2) network from numpy, all
+    trials at once: x_t = M1 x_{t-1} + a2 x_{t-2} + e_t with M1 = a1 I +
+    AdjMat^T and AdjMat[1, 0] the coupling (channel 1 drives channel 0);
+    the first two samples are the noise itself."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N_TRIALS, N_SAMPLES, n_chan), dtype=np.float32)
+    m1t = np.float32(AR2_ALPHAS[0]) * np.eye(n_chan, dtype=np.float32)  # M1^T
+    m1t[1, 0] = AR2_COUPLING
+    a2 = np.float32(AR2_ALPHAS[1])
+    for t in range(2, N_SAMPLES):
+        x[:, t] += x[:, t - 1] @ m1t + a2 * x[:, t - 2]
+    return x.reshape(-1, n_chan)
+
+
+def granger_csd_f64(data, n_chan, chunk=100):
+    """The Granger CSD computed apart from the port, in float64 on the
+    card: demean, the port's Hann taper, demeaned taper, rfft, trial sum of
+    the outer products over trials; rounded to complex64 as the port
+    rounds its own. Returns complex128 (F, C, C)."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    x_all = torch.from_numpy(data).to("cuda").reshape(N_TRIALS, N_SAMPLES, n_chan)
+    taper = torch.from_numpy(
+        make_tapers("hann", None, N_SAMPLES, N_SAMPLES, FS)[0]).to("cuda", torch.float64)
+    csd = torch.zeros((N_SAMPLES // 2 + 1, n_chan, n_chan), dtype=torch.complex128,
+                      device="cuda")
+    for b0 in range(0, N_TRIALS, chunk):
+        x = x_all[b0 : b0 + chunk].double()
+        x = taper[None, :, None] * (x - x.mean(dim=1, keepdim=True))
+        spec = torch.fft.rfft(x - x.mean(dim=1, keepdim=True), dim=1)  # (b, F, C)
+        csd += torch.einsum("bfi,bfj->fij", spec, spec.conj())
+    return (csd / N_TRIALS).to(torch.complex64).to(torch.complex128)
+
+
+def granger_oracle(csd, rtol, n_iter=100, cond_max=1e4, eps_max=1e-1):
+    """The port's host float64 path (regularize_csd_host, wilson_sf_host,
+    granger_host) transcribed into torch, on the complex128 (F, N, N)
+    `csd`'s device: PSD repair and the loading chosen by SVD condition
+    numbers; Wilson on the two-sided spectrum with an LU inverse a step
+    and FFTs over all 2F - 2 bins; Eq. 8. Returns (G, converged, err,
+    steps, eps)."""
+    import torch
+
+    F, N = csd.shape[0], csd.shape[-1]
+    eye = torch.eye(N, dtype=csd.dtype, device=csd.device)
+    lam = torch.linalg.eigvalsh((csd + csd.mH) / 2)
+    floor = 1e-6 * lam.abs().amax(dim=1)
+    lam_min = lam.amin(dim=1)
+    csd = csd + torch.where(lam_min < floor, floor - lam_min, 0.0)[:, None, None] * eye
+    eps = 0.0
+    if torch.linalg.cond(csd).amax().item() >= cond_max:
+        eps = -1.0
+        for cand in np.logspace(-10, np.log10(eps_max), 15):
+            if torch.linalg.cond(csd + cand * eye).amax().item() < cond_max:
+                eps = float(cand)
+                break
+    csd = csd + (eps_max if eps < 0 else eps) * eye
+
+    C = (csd + csd.mH) / 2
+    scale = torch.diagonal(C, dim1=1, dim2=2).abs().mean()
+    C = C / scale
+    full = torch.cat([C, C[1 : F - 1].flip(0).conj()])  # (M, N, N)
+    power = torch.diagonal(full, dim1=1, dim2=2).abs().mean(dim=1)
+    valid = (power > 1e-9 * power.max())[:, None, None]
+    gamma0 = torch.fft.fft(full, dim=0)[0]
+    psi0 = torch.linalg.cholesky(((gamma0 + gamma0.mH) / 2).real).mT.to(C.dtype)
+    psi = psi0.expand(full.shape[0], N, N).clone()
+    U = torch.linalg.cholesky(full)
+    n_lag = full.shape[0] // 2
+    err, prev_err, converged, steps = float("inf"), float("inf"), False, 0
+    for steps in range(1, n_iter + 1):
+        g = torch.linalg.inv(psi) @ U
+        g = g @ g.mH + eye
+        beta = torch.fft.ifft(g, dim=0).real.to(C.dtype)
+        beta[0] *= 0.5
+        g0 = beta[0].clone()
+        beta[n_lag] *= 0.5
+        beta[n_lag + 1 :] = 0
+        S = torch.triu(g0)
+        S = S - S.mH
+        psi = psi @ (torch.fft.fft(beta, dim=0) + S)
+        psi0 = psi0 @ (g0 + S)
+        rel = (full - psi @ psi.mH).abs() / full.abs()
+        err = torch.where(valid, rel, 0.0).max().item()
+        if err < rtol:
+            converged = True
+            break
+        if err < 1e-2 and prev_err - err < 1e-4 * err:
+            break
+        prev_err = err
+    Sigma = (psi0 @ psi0.mT) * scale
+    H = (psi @ torch.linalg.inv(psi0))[:F]
+
+    auto = torch.diagonal(csd, dim1=1, dim2=2).abs()  # (F, N)
+    cov = torch.diagonal(Sigma).abs()
+    denom = cov[:, None] - Sigma.mT.abs() ** 2 / cov[None, :]
+    dpow = auto.mean(dim=1)
+    keep = (dpow > 1e-9 * dpow.max())[:, None, None]
+    Smat = auto[:, None, :]
+    ratio = torch.where(keep, Smat / torch.where(keep, Smat - denom * H.mT.abs() ** 2, 1.0), 1.0)
+    return torch.log(ratio), converged, err, steps, eps
+
+
+def wall_ms(fn, reps=3):
+    """Median milliseconds of `fn` by the host clock, synchronized."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def granger_stages(adata, n_chan):
+    """The Granger call's steps replayed one by one with a synchronize
+    after each: the engine's gather, pad and upload, the float64 CSD
+    (detrend + taper, rfft, Gram), the readback and the AV stage's upload,
+    regularization, Wilson, the Granger formula. Returns (ms by stage,
+    Wilson steps, the averaged complex128 CSD on the card)."""
+    import torch
+
+    from syncopy_tpu_torch.connectivity.ST_compRoutines import CrossSpectra
+    from syncopy_tpu_torch.ops import connectivity as pc
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms[key] = ms.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return res
+
+    cr = CrossSpectra(samplerate=FS, nSamples=N_SAMPLES, taper="hann", taper_opt=None,
+                      demean_taper=True, polyremoval=0, exact_fft=True)
+    cr.initialize(adata, 0, keeptrials=False)
+    (shp, positions), = cr.buckets.items()
+    chunk = cr._chunk_size(shp, len(positions), 4)
+    ms, acc = {}, None
+    for c0 in range(0, len(positions), chunk):
+        pos = positions[c0 : c0 + chunk]
+
+        def gather():
+            batch = cr._gather_batch(adata, pos)
+            pad = np.zeros((chunk - len(pos),) + batch.shape[1:], batch.dtype)
+            batch = np.concatenate([batch, pad], axis=0)
+            return torch.from_numpy(np.ascontiguousarray(batch)).to("cuda")
+
+        dev = timed("host gather, pad, upload", gather)
+        tapered, K, nfft = timed("detrend + taper, float64", lambda: cr._tapered_batch(
+            dev, cr.cfg, torch.float64))
+        valid = torch.arange(tapered.shape[0], device="cuda") < len(pos)
+        tapered = timed("detrend + taper, float64",
+                        lambda: torch.where(valid[:, None, None, None], tapered, 0.0))
+        spec = timed("rfft, float64", lambda: cr._batch_spectra(tapered, nfft, cr.cfg))
+        del tapered
+
+        def gram():
+            B, _, F, C = spec.shape
+            rows = spec.permute(2, 0, 1, 3).reshape(F, B * K, C)
+            return (torch.matmul(rows.transpose(1, 2), rows.conj()) / K).to(torch.complex64)
+
+        res = timed("Gram, complex128 matmul", gram)
+        del spec
+        acc = res if acc is None else acc + res
+    host = timed("readback", lambda: (acc / len(positions)).cpu().numpy())
+    csd = timed("AV upload", lambda: torch.from_numpy(host).to("cuda", torch.complex128))
+    reg = timed("regularization", lambda: pc.regularize_csd(csd, cond_max=1e4, eps_max=1e-1)[0])
+    H, Sigma, _, _, steps = timed("Wilson", lambda: pc.wilson_sf(reg, nIter=100, rtol=5e-6))
+    timed("Granger formula + readback", lambda: pc.granger(reg, H, Sigma).float().cpu())
+    return ms, int(steps), csd
+
+
+def granger_phase(spt, n_chan, oracle, save_csd=None):
+    """The Granger main path at `n_chan` channels: one checked call (counts
+    and peak memory), the float64 oracle if `oracle`, timings. Returns
+    the printed summary as a dict."""
+    import torch
+
+    from syncopy_tpu_torch.connectivity import connectivity_analysis as pca
+    from syncopy_tpu_torch.ops import connectivity as pc
+    from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import ppc_kernels as pk
+
+    t0 = time.perf_counter()
+    data = ar2_network(n_chan)
+    trl = np.zeros((N_TRIALS, 3))
+    trl[:, 0] = np.arange(N_TRIALS) * N_SAMPLES
+    trl[:, 1] = trl[:, 0] + N_SAMPLES
+    adata = spt.from_arrays(data, trl, FS)
+    print("granger {} ch: AR(2) network made in {:.2f} s".format(n_chan, time.perf_counter() - t0))
+
+    # the averaged CSD the call factorizes, kept for the oracle
+    seen = {}
+    granger_stage = pca._granger
+
+    def keep_csd(st_out, *args):
+        seen["csd"] = np.asarray(st_out.data)[0]
+        return granger_stage(st_out, *args)
+
+    ck.csd_accumulate_tiled.launches = 0
+    ck.csd_accumulate.launches = 0
+    pk.ppc_accumulate_tiled.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pca._granger = keep_csd
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = spt.connectivityanalysis(adata, method="granger")
+            torch.cuda.synchronize()
+    finally:
+        pca._granger = granger_stage
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = (ck.csd_accumulate_tiled.launches, ck.csd_accumulate.launches,
+                pk.ppc_accumulate_tiled.launches)
+    if launches != (0, 0, 0):
+        raise AssertionError("granger launched kernels {}".format(launches))
+    host_route = [str(w.message) for w in caught if "host float64" in str(w.message)
+                  or "did NOT converge" in str(w.message)]
+    if host_route or "host float64" in out.log:
+        raise AssertionError("granger took the host route: {}".format(host_route or out.log))
+    info = dict(out.info)
+    G = np.asarray(out.data)
+    f_peak = int(np.argmin(np.abs(np.asarray(out.freq) - 200.0)))
+    print("granger {} ch: info {}; G at {:g} Hz: 1 -> 0 {:.4f}, 0 -> 1 {:.4f}; peak device "
+          "memory {:.3f} GB; kernel launches {}".format(
+              n_chan, info, out.freq[f_peak], G[0, f_peak, 1, 0], G[0, f_peak, 0, 1],
+              peak_gb, launches))
+    if G.shape != (1, N_SAMPLES // 2 + 1, n_chan, n_chan) or G.dtype != np.float32:
+        raise AssertionError("granger shape {} dtype {}".format(G.shape, G.dtype))
+    if not np.isfinite(G).all():
+        raise AssertionError("granger not finite")
+    if not (info["converged"] is True and info["max rel. err"] < 5e-6):
+        raise AssertionError("granger did not converge: {}".format(info))
+    if not (G[0, f_peak, 1, 0] > 0.3 and G[0, f_peak, 0, 1] < 0.1):
+        raise AssertionError("granger misses the drive 1 -> 0 at the AR peak")
+    if save_csd:
+        os.makedirs(save_csd, exist_ok=True)
+        np.savez(os.path.join(save_csd, "granger_csd{}.npz".format(n_chan)), csd=seen["csd"],
+                 G=G[0], **{k.replace(" ", "_").replace(".", ""): v for k, v in info.items()})
+
+    summary = {"info": info, "peak_gb": peak_gb}
+    if oracle:
+        t0 = time.perf_counter()
+        port_csd = torch.from_numpy(seen["csd"]).to("cuda", torch.complex128)
+        mine = granger_csd_f64(data, n_chan)
+        scale = mine[1:].abs().max().item()
+        csd_err = (port_csd[1:] - mine[1:]).abs().max().item() / scale
+        dc = max(port_csd[0].abs().max().item(), mine[0].abs().max().item()) / scale
+        G_or, conv, err, steps, eps = granger_oracle(port_csd, 5e-6)
+        g_err = float(np.abs(G[0] - G_or.cpu().numpy()).max())
+        G_tight, conv_t, err_t, steps_t, _ = granger_oracle(port_csd, 1e-9)
+        g_tight = float(np.abs(G[0] - G_tight.cpu().numpy()).max())
+        G_mine = granger_oracle(mine, 5e-6)[0].cpu().numpy()
+        g_mine = np.abs(G[0] - G_mine)
+        print("granger {} ch: CSD vs independent float64 CSD: rel err {:.3e} off DC, DC bins "
+              "{:.1e} of the maximum (rounding noise); float64 two-sided oracle on the port's "
+              "CSD at rtol 5e-6: converged {} in {} steps, err {:.3e}, eps {:g}, G max abs err "
+              "{:.3e}; at rtol 1e-9: converged {} in {} steps, err {:.3e}, G differs by {:.3e}; "
+              "oracle on the independent CSD: G differs by {:.3e} (DC-adjacent bin {:.3e}, "
+              "past 5 Hz {:.3e}); {:.1f} s".format(
+                  n_chan, csd_err, dc, conv, steps, err, eps, g_err, conv_t, steps_t, err_t,
+                  g_tight, g_mine.max(), g_mine[1].max(), g_mine[6:].max(),
+                  time.perf_counter() - t0))
+        if not csd_err < GRANGER_CSD_REL_TOL:
+            raise AssertionError("granger CSD rel err {:.3e} >= {}".format(
+                csd_err, GRANGER_CSD_REL_TOL))
+        if not g_err < GRANGER_ABS_TOL:
+            raise AssertionError("granger err vs float64 {:.3e} >= {}".format(
+                g_err, GRANGER_ABS_TOL))
+        summary.update(g_err=g_err, oracle_steps=steps)
+        del port_csd, mine
+    torch.cuda.empty_cache()
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        spt.connectivityanalysis(adata, method="granger")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print("granger {} ch warm wall: median {:.4f} s of 3 ({}), {:.1f} trials/s".format(
+        n_chan, wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
+
+    ms, steps, csd = granger_stages(adata, n_chan)
+    route = "Cholesky bisection" if n_chan >= pc._FAST_REG_MIN_CHAN else "eigvalsh"
+    print("granger {} ch stages (ms, synchronized): {}; regularization route {}; Wilson {} "
+          "steps, {:.3f} ms a step".format(
+              n_chan, ", ".join("{} {:.3f}".format(k, v) for k, v in ms.items()), route, steps,
+              ms["Wilson"] / max(steps, 1)))
+    routes = {}
+    saved = pc._FAST_REG_MIN_CHAN
+    try:
+        for name, threshold in (("eigvalsh", 10**9), ("Cholesky bisection", 0)):
+            pc._FAST_REG_MIN_CHAN = threshold
+            eps = float(pc.csd_reg_params(csd, 1e4, 1e-1)[1])
+            routes[name] = (wall_ms(lambda: pc.csd_reg_params(csd, 1e4, 1e-1)), eps)
+    finally:
+        pc._FAST_REG_MIN_CHAN = saved
+    psi = pc.regularize_csd(csd, cond_max=1e4, eps_max=1e-1)[0]
+    inv_ms = wall_ms(lambda: pc._inv_nan(psi), reps=10)
+    print("granger {} ch: regularization parameters by route (median of 3): {}; inv_ex of "
+          "({}, {}, {}) complex128 {:.3f} ms, {:.1f}% of a Wilson step".format(
+              n_chan, "; ".join("{} {:.3f} ms (eps {:g})".format(k, v[0], v[1])
+                                for k, v in routes.items()),
+              *psi.shape, inv_ms, 100 * inv_ms / (ms["Wilson"] / max(steps, 1))))
+    summary.update(wall=wall, stages=ms, steps=steps, routes=routes, inv_ms=inv_ms)
+    del csd, psi
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--save-csd", metavar="DIR",
+                        help="write the 64-channel Granger CSD and result into DIR")
+    args = parser.parse_args()
 
     # -- 1. device ------------------------------------------------------- #
     if not torch.cuda.is_available():
@@ -477,6 +832,20 @@ def main():
     print("main path warm wall: median {:.4f} s of 5 ({}), {:.1f} trials/s".format(
         wall, ", ".join("{:.4f}".format(w) for w in walls), N_TRIALS / wall))
 
+    # the same call on data in tesla (MEG): S_ii * S_jj leaves float32
+    tiny = data * np.float32(1e-13)
+    got = np.asarray(spt.connectivityanalysis(
+        spt.from_arrays(tiny, trl, FS), method="coh", tapsmofrq=2).data)
+    if not np.isfinite(got).all():
+        raise AssertionError("coherence at data scale 1e-13 not finite")
+    tiny_err = float(np.abs(got[0] - coherence_f64(tiny, taper, taper_opt)).max())
+    print("coh main path at data scale 1e-13: max abs err vs float64 {:.3e}".format(tiny_err))
+    if not tiny_err < COH_ABS_TOL:
+        raise AssertionError("coherence err at data scale 1e-13 {:.3e} >= {}".format(
+            tiny_err, COH_ABS_TOL))
+    del tiny
+    torch.cuda.empty_cache()
+
     # -- 7. ppc main path ------------------------------------------------- #
     ck.csd_accumulate_tiled.launches = 0
     ck.csd_accumulate.launches = 0
@@ -524,7 +893,12 @@ def main():
     if not tiny_err < PPC_ABS_TOL:
         raise AssertionError("ppc err at data scale 1e-13 {:.3e} >= {}".format(
             tiny_err, PPC_ABS_TOL))
-    del tiny
+    del tiny, data, adata
+    torch.cuda.empty_cache()
+
+    # -- 8. granger main path --------------------------------------------- #
+    for n_chan, oracle in ((N_CHANNELS, True), (2 * N_CHANNELS, False)):
+        granger_phase(spt, n_chan, oracle, args.save_csd if n_chan == N_CHANNELS else None)
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",

@@ -10,7 +10,6 @@ import numpy as np
 import torch
 
 from ..engine.routine import ComputationalRoutine
-from ..shared.errors import not_ported
 from ..ops.connectivity import csd_sum_compensated, spectral_dyadic_product
 from ..ops.csd_kernels import csd_accumulate_tiled
 from ..ops.ppc_kernels import ppc_accumulate_tiled
@@ -61,6 +60,12 @@ class CrossSpectra(_CrossRoutine):
     Single-trial (multi-)tapered cross spectra of AnalogData
     (reference ST_compRoutines.py:270-463): implicit mtmfft + channel
     outer product, tapers averaged. Output per trial ``(1, nFreq, N, N)``.
+
+    ``exact_fft=True`` gives the factorization-grade CSD that Granger
+    needs: detrend, taper, rfft and the trial x taper Gram in float64 (a
+    complex128 matmul), rounded to complex64 at the end. The JAX package's
+    double-float32 DFT behind the same switch handles trials of up to 1024
+    samples; this route has no such limit.
     """
 
     valid_kws = ["taper", "taper_opt", "tapsmofrq", "nTaper", "pad", "foi", "foilim",
@@ -69,8 +74,6 @@ class CrossSpectra(_CrossRoutine):
     def __init__(self, samplerate=1.0, nSamples=None, taper="hann", taper_opt=None,
                  demean_taper=False, polyremoval=0, freq_idx=None, foi=None,
                  exact_fft=False):
-        # exact_fft: the factorization-grade CSD Granger needs; it lands
-        # with the Granger slice (ROADMAP Queue 1 item 7)
         super().__init__(
             samplerate=samplerate, nSamples=nSamples, taper=taper, taper_opt=taper_opt,
             demean_taper=demean_taper, polyremoval=polyremoval,
@@ -86,13 +89,14 @@ class CrossSpectra(_CrossRoutine):
         return (1, n_freq, C, C), np.dtype(np.complex64)
 
     @staticmethod
-    def _tapered_batch(batch, cfg):
-        """(B, K, T, C) detrended+tapered trial batch and the taper count."""
+    def _tapered_batch(batch, cfg, dtype=torch.float32):
+        """(B, K, T, C) detrended+tapered trial batch in `dtype` and the
+        taper count."""
         nfft = cfg["nSamples"] or batch.shape[1]
-        x = detrend(batch.to(torch.float32), cfg["polyremoval"], dim=1)
+        x = detrend(batch.to(dtype), cfg["polyremoval"], dim=1)
         tapers = torch.from_numpy(
             make_tapers(cfg["taper"], cfg["taper_opt"], batch.shape[1], nfft, cfg["samplerate"])
-        ).to(x.device)
+        ).to(x.device, dtype)
         tapered = tapers[None, :, :, None] * x[:, None, :, :]  # (B, K, T, C)
         if cfg["demean_taper"]:
             tapered = tapered - tapered.mean(dim=2, keepdim=True)
@@ -107,9 +111,22 @@ class CrossSpectra(_CrossRoutine):
             spec = spec.index_select(2, idx)
         return spec
 
+    @classmethod
+    def _exact_csd_sum(cls, batch, n_valid, cfg):
+        """(F, C, C) complex128 trial x taper CSD sum over the first
+        `n_valid` trials of `batch`, all in float64."""
+        tapered, K, nfft = cls._tapered_batch(batch, cfg, torch.float64)
+        # where-mask (not multiply): padding rows may hold NaN
+        valid = torch.arange(tapered.shape[0], device=tapered.device) < n_valid
+        tapered = torch.where(valid[:, None, None, None], tapered, 0.0)
+        spec = cls._batch_spectra(tapered, nfft, cfg)  # (B, K, F, C)
+        B, _, F, C = spec.shape
+        rows = spec.permute(2, 0, 1, 3).reshape(F, B * K, C)
+        return torch.matmul(rows.transpose(1, 2), rows.conj()) / K
+
     def process_single_trial(self, trial, **cfg):
         if cfg.get("exact_fft"):
-            raise not_ported("exact_fft (the compensated DFT for Granger)", "ROADMAP Queue 1 item 7")
+            return self._exact_csd_sum(trial[None], 1, cfg)[None].to(torch.complex64)
         tapered, K, nfft = self._tapered_batch(trial[None], cfg)
         spec = self._batch_spectra(tapered, nfft, cfg)[0]  # (K, F, C)
         CS = torch.einsum("kfi,kfj->fij", spec, spec.conj()) / K
@@ -120,10 +137,11 @@ class CrossSpectra(_CrossRoutine):
         Trial-summed cross spectra over the first `n_valid` trials of a
         padded batch: the whole trial x taper stack collapses in one
         tiled CSD accumulation (CUDA kernel on the card) instead of
-        materializing per-trial (nFreq, N, N) matrices.
+        materializing per-trial (nFreq, N, N) matrices. With `exact_fft`
+        the sum is the float64 Gram of :meth:`_exact_csd_sum` instead.
         """
         if cfg.get("exact_fft"):
-            raise not_ported("exact_fft (the compensated DFT for Granger)", "ROADMAP Queue 1 item 7")
+            return self._exact_csd_sum(batch, n_valid, cfg)[None].to(torch.complex64)
         tapered, K, nfft = self._tapered_batch(batch, cfg)
         spec = self._batch_spectra(tapered, nfft, cfg)
         B, _, F, C = spec.shape

@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
 #
-# connectivityanalysis: user-facing connectivity frontend (coh, csd, ppc).
+# connectivityanalysis: user-facing connectivity frontend (coh, csd, ppc,
+# granger).
 #
 # Port of syncopy_tpu/connectivity/connectivity_analysis.py. A single-trial
 # stage computes cross spectra, from AnalogData (CrossSpectra, PPCSpectra)
@@ -13,13 +14,21 @@
 #   unit-phasor resultant in one pass, through the CUDA kernel on the
 #   card) with PPCReduction's post. ppc from SpectralData: the two-pass
 #   route, single-trial SpectralDyadicProduct then _compute_ppc.
+# - granger: the averaged CSD (from AnalogData in float64 with demeaned
+#   tapers), then GrangerCausality (regularization, Wilson, Granger in
+#   complex128 on the device); with `channelcmb`, one batched
+#   factorization of all 2x2 pair CSDs. A CSD singular by construction
+#   (the rank gate) and a device factorization that did not converge go to
+#   the host float64 path, with a warning.
 # Not ported: the SPY_TPU_FUSED_PPC switch back to the two-pass route from
-# AnalogData (the port has no environment knobs), and the triangular and
-# Hermitian readback packs, workarounds for the TPU runtime's readback.
-# granger, corr and jackknife raise NotImplementedError naming the ROADMAP
-# item that ports them.
+# AnalogData and the SPY_GRANGER_HOST switch to the host factorization
+# (the port has no environment knobs), and the triangular and Hermitian
+# readback packs, workarounds for the TPU runtime's readback. corr and
+# jackknife raise NotImplementedError naming the ROADMAP item that ports
+# them.
 
 import numpy as np
+import torch
 
 from ..datatype.continuous_data import AnalogData, CrossSpectralData, SpectralData
 from ..shared.errors import SPYInfo, SPYTypeError, SPYValueError, SPYWarning, not_ported
@@ -42,8 +51,11 @@ connectivity_outputs = ("abs", "pow", "complex", "fourier", "angle", "real", "im
 #: where each method that is not ported yet is queued
 _NOT_PORTED = {
     "corr": "ROADMAP Queue 1 item 8 (CrossCovariance)",
-    "granger": "ROADMAP Queue 1 item 7 (the Granger slice)",
 }
+
+#: retry a device Granger factorization that did not converge with the
+#: host float64 one (the JAX package's SPY_GRANGER_HOST_FALLBACK)
+_GRANGER_HOST_FALLBACK = True
 
 
 @unwrap_cfg
@@ -71,8 +83,9 @@ def connectivityanalysis(
     Perform connectivity analysis of AnalogData or (complex) SpectralData.
 
     Ported methods: ``coh`` (coherence), ``csd`` (single-trial/averaged
-    cross-spectra) and ``ppc`` (pairwise phase consistency). ``corr`` and
-    ``granger`` raise NotImplementedError until their slices land.
+    cross-spectra), ``ppc`` (pairwise phase consistency) and ``granger``
+    (nonparametric Granger-Geweke causality via Wilson factorization).
+    ``corr`` raises NotImplementedError until its slice lands.
 
     Parameters
     ----------
@@ -92,15 +105,17 @@ def connectivityanalysis(
     pad : "maxperlen", "nextpow2", or float
         Trial padding policy.
     channelcmb : [senders, receivers] or None
-        Two channel lists restricting the pairwise computation; needs
-        SpectralData input. Results contain only the requested block.
+        Two channel lists restricting the pairwise computation (granger:
+        one factorization per pair); needs SpectralData input. Results
+        contain only the requested block.
     polyremoval : {0, 1, None}
         Per-trial detrend order before tapering.
     tapsmofrq, nTaper, taper, taper_opt
         Multi-taper controls (AnalogData input).
     jackknife : bool
-        Leave-one-out error estimation for "coh"; not ported yet. Ignored
-        with a warning by the other methods, as in the JAX package.
+        Leave-one-out error estimation for "coh" and "granger"; not ported
+        yet. Ignored with a warning by the other methods, as in the JAX
+        package.
     parallel : bool or None
         Accepted for API parity and ignored: the engine runs on one device.
 
@@ -108,7 +123,8 @@ def connectivityanalysis(
     -------
     :class:`~syncopy_tpu_torch.CrossSpectralData`
         ``(time, freq, channel_i, channel_j)`` connectivity estimates with
-        replayable ``cfg``.
+        replayable ``cfg``; Granger convergence diagnostics land in
+        ``out.info``.
 
     Reference: connectivity_analysis.py:51.
     """
@@ -128,11 +144,12 @@ def connectivityanalysis(
         raise not_ported("method '{}'".format(method), _NOT_PORTED[method])
     if not isinstance(jackknife, bool):
         raise SPYTypeError(jackknife, "jackknife", "boolean")
-    if jackknife and method != "coh":
+    if jackknife and method not in ("coh", "granger"):
         SPYWarning("Jackknife is not available for method {}".format(method))
         jackknife = False
     if jackknife:
-        raise not_ported("jackknife", "ROADMAP Queue 1 item 8 (statistics/jackknifing.py)")
+        raise not_ported("jackknife", "ROADMAP Queue 1 item 8 (jackknife: "
+                         "statistics/jackknifing.py, GrangerCausality.process_batch)")
     if method != "coh" and output != defaults["output"]:
         SPYWarning("Setting `output` for method {} has no effect!".format(method))
 
@@ -175,7 +192,7 @@ def connectivityanalysis(
         # ppc from AnalogData: spectra and the unit-phasor reduction in one
         # engine pass (PPCSpectra); the per-trial CSD stack never exists
         st_compRoutine = _setup_cross_spectra(
-            data, nSamples, foi, foilim, tapsmofrq, nTaper, taper, taper_opt,
+            data, method, nSamples, foi, foilim, tapsmofrq, nTaper, taper, taper_opt,
             polyremoval, lenTrials, log_dict,
             cls=PPCSpectra if method == "ppc" else CrossSpectra,
         )
@@ -186,6 +203,8 @@ def connectivityanalysis(
                 legal="complex valued spectra, set `output='fourier'` in spy.freqanalysis!",
                 varname="data", actual="real valued spectral data",
             )
+        if method == "granger":
+            _granger_spectral_input_notes(data)
         check_effective_parameters(
             SpectralDyadicProduct, defaults, lcls, besides=["jackknife", "channelcmb"]
         )
@@ -225,7 +244,12 @@ def connectivityanalysis(
             post = lambda csd_avg: csd_avg  # noqa: E731
         st_compRoutine.compute(data, st_out, log_dict=log_dict, post_device_fn=post)
 
-    out = _compute_ppc(st_out) if two_pass_ppc else st_out
+    if method == "granger":
+        out = _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict)
+    elif two_pass_ppc:
+        out = _compute_ppc(st_out)
+    else:
+        out = st_out
     if send_idx is not None and method == "coh":
         out = out.selectdata(channel_i=[str(c) for c in np.asarray(data.channel)[send_idx]])
         out = out.selectdata(channel_j=[str(c) for c in np.asarray(data.channel)[rec_idx]])
@@ -287,13 +311,25 @@ def _digest_channelcmb(data, channelcmb):
     return to_idx(senders), to_idx(receivers)
 
 
-def _setup_cross_spectra(data, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
+def _setup_cross_spectra(data, method, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
                          taper_opt, polyremoval, lenTrials, log_dict, cls):
     """Configure the implicit mtmfft+dyadic ST routine for AnalogData input
     (reference connectivity_analysis.py:775-872). `cls` picks the routine
-    class (CrossSpectra or its fused-PPC subclass). The Granger settings
-    (demeaned tapers, exact_fft) land with the Granger slice."""
+    class (CrossSpectra or its fused-PPC subclass). Granger takes every
+    frequency, demeaned tapers and the float64 CSD (exact_fft)."""
     foi, foilim = process_foi(foi, foilim, data.samplerate)
+    if method == "granger":
+        if foi is not None or foilim is not None:
+            raise SPYValueError(
+                legal="no foi specification for Granger analysis", varname="foi/foilim",
+                actual="foi or foilim specification",
+            )
+        if len(data.channel) / len(lenTrials) > 0.1:
+            SPYWarning(
+                "Multi-channel Granger analysis can be numerically unstable, it is "
+                "recommended to have at least 10 times the number of trials compared "
+                "to the number of channels. Try calculating in sub-groups of fewer channels!"
+            )
     freqs = np.fft.rfftfreq(nSamples, 1 / data.samplerate)
     freq_idx = None
     if foi is not None:
@@ -313,7 +349,8 @@ def _setup_cross_spectra(data, nSamples, foi, foilim, tapsmofrq, nTaper, taper,
 
     return cls(
         samplerate=data.samplerate, nSamples=nSamples, taper=taper, taper_opt=taper_opt,
-        polyremoval=polyremoval, freq_idx=freq_idx, foi=out_foi,
+        demean_taper=(method == "granger"), polyremoval=polyremoval,
+        freq_idx=freq_idx, foi=out_foi, exact_fft=(method == "granger"),
     )
 
 
@@ -333,3 +370,153 @@ def _compute_ppc(st_out):
     out._log = str(st_out._log)
     out.log = "computed pairwise phase consistency over {} trials".format(n_trials)
     return out
+
+
+# ------------------------------------------------------------------------ #
+# Granger
+# ------------------------------------------------------------------------ #
+
+
+def _granger_spectral_input_notes(data):
+    """Granger from SpectralData: note time-resolved input (one
+    factorization per window) and warn when the spectra's provenance
+    shows a plain float32 FFT (reference connectivity_analysis.py:225-258)."""
+    n_time = data.data.shape[data.dimord.index("time")]
+    if n_time != len(data.trials):
+        SPYInfo(
+            "time-resolved Granger: factorizing one CSD per sliding window "
+            "({} windows per trial)".format(n_time // max(len(data.trials), 1))
+        )
+    fa_cfg = data.cfg.get("freqanalysis", None)
+    if fa_cfg is not None and not fa_cfg.get("exact_fft", False):
+        SPYWarning(
+            "Granger from precomputed float32 'fourier' spectra is numerically "
+            "degraded: the accumulated CSD carries plain-f32 rounding, which biases "
+            "the Granger estimate by O(1e-2) absolute even when the factorization "
+            "converges (and can make it fail outright). Recompute the spectra with "
+            "freqanalysis(..., exact_fft=True), or run "
+            "connectivityanalysis(method='granger') directly on the raw AnalogData "
+            "(the float64 CSD then applies automatically)."
+        )
+
+
+def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict):
+    """The AV stage of Granger on the averaged CSD `st_out` (reference
+    connectivity_analysis.py:276-277, :379-432, :466-476): pairwise with
+    `channelcmb`; else the host float64 path if the rank gate finds the
+    CSD singular by construction; else the device factorization, retried
+    on the host if it did not converge. Every host route warns."""
+    from .AV_compRoutines import GrangerCausality
+
+    av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
+    if send_idx is not None:
+        out = _granger_pairwise(st_out, send_idx, rec_idx, data, av)
+    elif _granger_rank_deficient(st_compRoutine, nTrials, st_out):
+        n_tap, n_chan = _granger_n_tapers(st_compRoutine), len(st_out.channel_i)
+        SPYWarning(
+            "Granger with {} trials x {} taper(s) on {} channels: the averaged CSD "
+            "has rank {} < {} and is singular, so no device factorization is tried; "
+            "using the host float64 path on the regularized matrix. Results depend "
+            "on the regularization; use more trials/tapers or fewer "
+            "channels.".format(nTrials, n_tap, n_chan, nTrials * n_tap, n_chan)
+        )
+        out = _granger_host_full(st_out, av)
+    else:
+        out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+        av.initialize(st_out, out._stackingDim)
+        av.pre_check()
+        av.compute(st_out, out, log_dict=log_dict)
+        if out.info.get("converged") is False and _GRANGER_HOST_FALLBACK:
+            SPYWarning(
+                "device Wilson factorization did not converge (max rel. err {:.2e}) "
+                "— retrying with the host float64 factorization.".format(
+                    float(out.info.get("max rel. err", float("nan"))))
+            )
+            out = _granger_host_full(st_out, av)
+    # non-convergence is a result-quality problem: say so
+    if out.info.get("converged") is False:
+        SPYWarning(
+            "Wilson factorization did NOT converge (max rel. err {:.2e}); the Granger "
+            "estimates are unreliable. Typical cause: input spectra from a plain "
+            "float32 FFT (see the exact_fft note above); otherwise raise nIter or "
+            "loosen rtol.".format(float(out.info.get("max rel. err", float("nan"))))
+        )
+    return out
+
+
+def _granger_n_tapers(st_compRoutine):
+    """Taper count of the ST stage (Kmax for dpss, else 1)."""
+    t_opt = (getattr(st_compRoutine, "cfg", None) or {}).get("taper_opt")
+    return int((t_opt or {}).get("Kmax", 1) or 1)
+
+
+def _granger_rank_deficient(st_compRoutine, nTrials, st_out):
+    """True when the trial-averaged CSD is singular by construction: each
+    trial adds rank <= nTapers per frequency, so nTrials * nTapers <
+    nChannels has no Wilson factorization."""
+    return nTrials * _granger_n_tapers(st_compRoutine) < len(np.asarray(st_out.channel_i))
+
+
+def _granger_out(st_avg, G, channel_i, channel_j, info, log):
+    """The Granger CrossSpectralData of `G` ``(nTime, F, N_i, N_j)``."""
+    out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+    out.data = G
+    out.samplerate = st_avg.samplerate
+    out.trialdefinition = np.array([[0, float(G.shape[0]), 0]])
+    out.channel_i = np.asarray(channel_i)
+    out.channel_j = np.asarray(channel_j)
+    out.freq = np.asarray(st_avg.freq)
+    for key, value in info.items():
+        out.info[key] = value
+    out._log = str(st_avg._log)
+    out.log = log
+    return out
+
+
+def _granger_host_full(st_avg, av_routine):
+    """Full-matrix Granger with the host float64 factorization, one per
+    sliding window of time-resolved input."""
+    from ..ops.connectivity import granger_host, regularize_csd_host, wilson_sf_host
+
+    cfg = av_routine.cfg
+    csd_windows = np.asarray(st_avg.trials[0])  # (nTime, F, N, N)
+    G = np.empty(csd_windows.shape, dtype=np.float32)
+    convs, errs, factors, ini_cns = [], [], [], []
+    for t in range(csd_windows.shape[0]):
+        CSDreg, factor, ini_cn = regularize_csd_host(
+            csd_windows[t], cond_max=cfg["cond_max"], eps_max=1e-1)
+        H, Sigma, conv, err = wilson_sf_host(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+        G[t] = granger_host(CSDreg, H, Sigma).astype(np.float32)
+        convs.append(bool(conv))
+        errs.append(float(err))
+        factors.append(float(factor))
+        ini_cns.append(float(ini_cn))
+    return _granger_out(st_avg, G, st_avg.channel_i, st_avg.channel_j, {
+        "converged": all(convs), "max rel. err": max(errs),
+        "reg. factor": max(factors), "initial cond. num": max(ini_cns),
+    }, "computed Granger causality (host float64 factorization)")
+
+
+def _granger_pairwise(st_avg, send_idx, rec_idx, data, av_routine):
+    """
+    Pairwise Granger over (senders x receivers): one batched
+    regularization, Wilson factorization and Granger formula over all the
+    ``(P, F, 2, 2)`` pair CSDs, each factorized as it would be alone
+    (reference connectivity_analysis.py:792-840).
+    """
+    from ..engine.routine import default_device
+    from ..ops.connectivity import granger, regularize_csd, wilson_sf
+
+    cfg = av_routine.cfg
+    csd_avg = np.asarray(st_avg.trials[0])[0]  # (F, N, N)
+    pairs = np.array([(s, r) for s in send_idx for r in rec_idx])  # (P, 2)
+    sub = csd_avg[:, pairs[:, :, None], pairs[:, None, :]].transpose(1, 0, 2, 3)
+    CSD = torch.from_numpy(np.ascontiguousarray(sub)).to(default_device(), torch.complex128)
+    CSDreg, _, _ = regularize_csd(CSD, cond_max=cfg["cond_max"], eps_max=1e-1)
+    H, Sigma, conv, err, _ = wilson_sf(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+    G_pairs = granger(CSDreg, H, Sigma)[..., 0, 1].to(torch.float32).cpu().numpy()  # (P, F)
+    G = G_pairs.reshape(len(send_idx), len(rec_idx), -1).transpose(2, 0, 1)[None]
+    channel = np.asarray(data.channel)
+    return _granger_out(st_avg, G, channel[send_idx], channel[rec_idx], {
+        "converged": bool(conv.all()), "max rel. err": float(err.amax()),
+    }, "computed pairwise Granger causality for {} pairs".format(len(pairs)))

@@ -10,7 +10,10 @@
 #     padded chunks masked by `n_valid`, chunk sums accumulated on the
 #     device, the fused post transform applied to sum / numTrials;
 #   - host gather (_plan_fast_gather/_gather_batch), one upload per chunk,
-#     process_metadata and write_log.
+#     process_metadata and write_log;
+#   - the aux-info channel: a routine's per-trial step may return
+#     (result, info), and the info is collected per trial into
+#     `aux_info` (reference :379-391, :817-861, :1009-1011).
 # Left out, as workarounds for the TPU runtime: the (re, im) complex
 # encoding, the readback relayout, dispatch retries and compile back-off,
 # f16 transfer/readback, the device trial store, device-resident outputs
@@ -92,14 +95,23 @@ class ComputationalRoutine:
     Optionally ``process_batch_sum(batch, n_valid, **cfg)``: the sum over
     the first `n_valid` trials of a padded batch, the engine's fused path
     for ``keeptrials=False``.
+
+    ``process_single_trial`` may also return ``(result, info)``, an info
+    dict of diagnostics. Its keys in :attr:`aux_per_trial` hold one value
+    per trial and are collected by selected-trial position; other keys
+    are per chunk. After ``compute`` they are in ``self.aux_info``.
     """
 
     outputShape = None
     dtype = None
 
+    #: aux-info keys with one value per trial (see the class docstring)
+    aux_per_trial = frozenset()
+
     def __init__(self, **cfg):
         self.cfg = dict(cfg)
         self.keeptrials = True
+        self.aux_info = {}
         self.buckets = None
         self.out_per_trial_shapes = None
         self.selector = None
@@ -117,7 +129,14 @@ class ComputationalRoutine:
         raise NotImplementedError
 
     def process_batch(self, batch, **cfg):
-        return torch.stack([self.process_single_trial(t, **cfg) for t in batch], dim=0)
+        """The per-trial results of `batch` stacked, and, where the trial
+        step returns ``(result, info)``, the info values stacked per key."""
+        results = [self.process_single_trial(t, **cfg) for t in batch]
+        if not isinstance(results[0], tuple):
+            return torch.stack(results, dim=0)
+        info = {k: torch.stack([torch.as_tensor(r[1][k]) for r in results], dim=0)
+                for k in results[0][1]}
+        return torch.stack([r[0] for r in results], dim=0), info
 
     def process_metadata(self, data, out):
         raise NotImplementedError
@@ -300,9 +319,42 @@ class ComputationalRoutine:
         if self.buckets is None:
             raise SPYError("call initialize() before compute()")
         self._post_fn = post_device_fn
+        self.aux_info = {}
+        self._aux_per_trial = {}
+        self._aux_chunked = {}
         self._run(data, out)
+        self._finalize_aux()
         self.write_log(data, out, log_dict)
         self.process_metadata(data, out)
+
+    def _accumulate_aux(self, aux_info, chunk_pos):
+        """Collect one chunk's info dict, read back to the host: keys in
+        :attr:`aux_per_trial` by selected-trial position (their leading
+        axis is the chunk's valid trials), the others per chunk."""
+        for k, v in aux_info.items():
+            arr = torch.as_tensor(v).cpu().numpy()
+            if k in self.aux_per_trial:
+                if arr.ndim < 1 or arr.shape[0] != len(chunk_pos):
+                    raise SPYError(
+                        "{}: aux key '{}' is declared per-trial but its leading axis is {} "
+                        "({} trials in the chunk)".format(
+                            self.__class__.__name__, k, arr.shape[:1] or "scalar",
+                            len(chunk_pos)))
+                per_trial = self._aux_per_trial.setdefault(k, {})
+                for i, pos in enumerate(chunk_pos):
+                    per_trial[pos] = arr[i]
+            else:
+                self._aux_chunked.setdefault(k, []).append(arr)
+
+    def _finalize_aux(self):
+        """``self.aux_info``: per-trial values stacked in selected-trial
+        order, per-chunk values along a leading chunk axis (unwrapped for
+        a single chunk)."""
+        aux = {k: np.stack([rows[p] for p in sorted(rows)], axis=0)
+               for k, rows in self._aux_per_trial.items()}
+        for k, chunks in self._aux_chunked.items():
+            aux.setdefault(k, chunks[0] if len(chunks) == 1 else np.stack(chunks, axis=0))
+        self.aux_info = aux
 
     def _chunk_size(self, shp, n_positions, itemsize):
         """Trials per chunk for input trials of shape `shp`, from the
@@ -341,6 +393,9 @@ class ComputationalRoutine:
                     acc = res if acc is None else acc + res
                     continue
                 res = self.process_batch(dev_batch[:n_valid], **self.cfg)
+                if isinstance(res, tuple):
+                    res, aux_info = res
+                    self._accumulate_aux(aux_info, chunk_pos)
                 if not self.keeptrials:
                     res = res.sum(dim=0)
                     acc = res if acc is None else acc + res

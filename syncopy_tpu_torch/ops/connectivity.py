@@ -1,20 +1,29 @@
 # -*- coding: utf-8 -*-
 #
 # Connectivity ops on torch tensors: the dyadic product of precomputed
-# spectra, coherence normalization and the compensated cross-spectral
-# density sum.
+# spectra, coherence normalization, the compensated cross-spectral density
+# sum, and Granger causality (CSD regularization, Wilson's spectral matrix
+# factorization, the Granger-Geweke formula) with its host float64 oracle.
 #
-# Port of a subset of syncopy_tpu/ops/connectivity.py
-# (spectral_dyadic_product, normalize_csd, csd_sum_compensated). The rest
-# of that module (Wilson, Granger, cross-covariance) lands with its slice
-# (ROADMAP Queue 1).
+# Port of syncopy_tpu/ops/connectivity.py (spectral_dyadic_product,
+# normalize_csd, csd_sum_compensated, csd_lam_extents, csd_reg_params,
+# apply_csd_reg, psd_topup, regularize_csd, wilson_sf, granger and the
+# numpy wilson_sf_host, regularize_csd_host, granger_host). Wilson runs the
+# JAX package's complex128 route: the card computes float64 natively, so
+# the float32 machinery the TPU needed (double-float32 DFT and Gram,
+# compensated-residual Newton refinement, g-forcing of excluded bins, the
+# GEMM form of the plus operator) is not ported. Cross-covariance lands
+# with its slice (ROADMAP Queue 1 item 8).
 
+import numpy as np
 import torch
 
 from .spectral import spectral_convert
 
 __all__ = ["spectral_dyadic_product", "normalize_csd", "csd_sum_compensated",
-           "gram_sum_twosum"]
+           "gram_sum_twosum", "csd_lam_extents", "csd_reg_params", "apply_csd_reg",
+           "psd_topup", "regularize_csd", "wilson_sf", "granger", "wilson_sf_host",
+           "regularize_csd_host", "granger_host"]
 
 
 def spectral_dyadic_product(spec, send_idx=None, rec_idx=None):
@@ -43,9 +52,12 @@ def spectral_dyadic_product(spec, send_idx=None, rec_idx=None):
 
 def normalize_csd(csd_av, output="abs"):
     """Coherency from a trial-averaged CSD: ``C_ij = S_ij/sqrt(S_ii S_jj)``
-    (reference csd.py:118-175)."""
-    diag = torch.diagonal(csd_av, dim1=-2, dim2=-1)
-    Ciijj = torch.sqrt((diag[..., :, None] * diag[..., None, :]).real)
+    (reference csd.py:118-175). The denominator is formed as
+    ``sqrt(S_ii) * sqrt(S_jj)``: the product ``S_ii * S_jj`` leaves
+    float32's range for data of amplitude below ~3e-10 (MEG in tesla),
+    where the JAX package's coherence turns to 0/0."""
+    root = torch.sqrt(torch.diagonal(csd_av, dim1=-2, dim2=-1).real)
+    Ciijj = root[..., :, None] * root[..., None, :]
     return spectral_convert(csd_av / Ciijj, output)
 
 
@@ -100,3 +112,374 @@ def csd_sum_compensated(spec, sub=16):
     """
     B, K, F, C = spec.shape
     return gram_sum_twosum(spec.reshape(B * K, F, C), sub)
+
+
+# ------------------------------------------------------------------------ #
+# Granger causality: regularization, Wilson factorization, Granger formula
+# (reference wilson_sf.py:16-262, granger.py:10-80). Every torch function
+# takes leading batch dims: (..., F, N, N) CSDs, one factorization each.
+# ------------------------------------------------------------------------ #
+
+#: channel count from which csd_reg_params takes the Cholesky-bisection
+#: extents (csd_lam_extents) instead of a batched eigvalsh; the JAX
+#: package's threshold, set from TPU timings
+_FAST_REG_MIN_CHAN = 96
+
+
+def _real_dtype(cdtype):
+    return torch.float64 if cdtype == torch.complex128 else torch.float32
+
+
+def _nan_where_failed(x, info):
+    """`x` where the batched LAPACK-style `info` is 0, NaN elsewhere: a
+    failed Cholesky or inverse yields NaN, as in the JAX package, instead
+    of an exception (and of the host sync that checking it would cost)."""
+    return torch.where((info == 0)[..., None, None], x, x.new_full((), float("nan")))
+
+
+def _cholesky_nan(a):
+    L, info = torch.linalg.cholesky_ex(a)
+    return _nan_where_failed(L, info)
+
+
+def _inv_nan(a):
+    X, info = torch.linalg.inv_ex(a)
+    return _nan_where_failed(X, info)
+
+
+def csd_lam_extents(CSDh, bisect_rounds=30):
+    """
+    Per-frequency extreme eigenvalues of Hermitian ``(..., F, N, N)``
+    matrices by Cholesky bisection, both ends at once: ``lam_min(A) > t``
+    iff ``A - t I`` has a Cholesky factor, and ``lam_max(A) < t`` iff
+    ``t I - A`` has one, so each round is one batched Cholesky of the
+    ``(..., 2F, N, N)`` probes, starting from Gershgorin brackets
+    (reference: syncopy_tpu ops/connectivity.py::csd_lam_extents).
+
+    Returns ``(lo, hi, lam_max)``, each ``(..., F)``, with
+    ``lo <= lam_min <= hi``.
+    """
+    F = CSDh.shape[-3]
+    eye = torch.eye(CSDh.shape[-1], dtype=CSDh.dtype, device=CSDh.device)
+    diag = torch.diagonal(CSDh, dim1=-2, dim2=-1).real
+    radius = CSDh.abs().sum(dim=-1) - diag.abs()
+    lo = (diag - radius).amin(dim=-1)  # Gershgorin: <= lam_min
+    hi = diag.amin(dim=-1)  # min diagonal: >= lam_min
+    lo_mx = diag.amax(dim=-1)  # max diagonal: <= lam_max
+    hi_mx = (diag + radius).amax(dim=-1)  # Gershgorin: >= lam_max
+    for _ in range(bisect_rounds):
+        mid = 0.5 * (lo + hi)
+        mid_mx = 0.5 * (lo_mx + hi_mx)
+        probe = torch.cat([CSDh - mid[..., None, None] * eye,
+                           mid_mx[..., None, None] * eye - CSDh], dim=-3)
+        pd = torch.linalg.cholesky_ex(probe)[1] == 0
+        pd_mn, pd_mx = pd[..., :F], pd[..., F:]
+        lo, hi = torch.where(pd_mn, mid, lo), torch.where(pd_mn, hi, mid)
+        lo_mx, hi_mx = torch.where(pd_mx, lo_mx, mid_mx), torch.where(pd_mx, mid_mx, hi_mx)
+    return lo, hi, 0.5 * (lo_mx + hi_mx)
+
+
+def csd_reg_params(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
+    """
+    Regularization parameters of :func:`regularize_csd` for ``(..., F, N,
+    N)`` CSDs: the per-frequency PSD-repair shift and the smallest loading
+    ``eps`` (log-spaced up to `eps_max`) that brings every frequency's
+    condition number below `cond_max`, both from the eigenvalue extremes
+    (a batched eigvalsh below ``_FAST_REG_MIN_CHAN`` channels, Cholesky
+    bisection from there; reference: syncopy_tpu
+    ops/connectivity.py::csd_reg_params). The reductions run over F and N
+    only: each batch element gets its own parameters.
+
+    Returns ``(psd_shift (..., F), eps (...) [-1 marks failure],
+    ini_cond (...))``.
+    """
+    rdtype = _real_dtype(CSD.dtype)
+    epsilons = torch.cat([
+        torch.zeros(1, dtype=rdtype),
+        torch.from_numpy(np.logspace(-10, np.log10(eps_max), nSteps)).to(rdtype),
+    ]).to(CSD.device)
+    CSDh = (CSD + CSD.mH) / 2
+    zero = torch.zeros((), dtype=rdtype, device=CSD.device)
+    if CSD.shape[-1] >= _FAST_REG_MIN_CHAN:
+        lam_lo, lam_hi, lam_max_f = csd_lam_extents(CSDh)
+        lam_mid = 0.5 * (lam_lo + lam_hi)
+        bin_scale = torch.maximum(lam_mid.abs(), lam_max_f)  # max |lam|
+        raw_min = torch.clamp(lam_mid.abs(), min=torch.finfo(rdtype).tiny)
+        ini_cond_raw = (bin_scale / raw_min).amax(dim=-1)
+        lam_floor = 1e-6 * bin_scale
+        # PSD repair from the bracket's lower edge: never under-lifts
+        psd_shift = torch.where(lam_lo < lam_floor, torch.clamp(lam_floor - lam_lo, min=0), zero)
+        smin = (lam_mid + psd_shift).abs()
+        smax = lam_max_f + psd_shift
+        conds = ((smax[..., None, :] + epsilons[:, None])
+                 / (smin[..., None, :] + epsilons[:, None])).amax(dim=-1)  # (..., E+1)
+    else:
+        lam = torch.linalg.eigvalsh(CSDh)  # (..., F, N)
+        # the initial condition number is that of the matrix as received
+        raw_abs = lam.abs()
+        ini_cond_raw = (raw_abs.amax(dim=-1) / raw_abs.amin(dim=-1)).amax(dim=-1)
+        lam_min = lam.amin(dim=-1)
+        # PSD repair: lift a frequency whose smallest eigenvalue lies below
+        # 1e-6 of its largest to that floor; healthy bins are untouched
+        lam_floor = 1e-6 * raw_abs.amax(dim=-1)
+        psd_shift = torch.where(lam_min < lam_floor, torch.clamp(lam_floor - lam_min, min=0), zero)
+        shifted = (lam[..., None, :, :] + psd_shift[..., None, :, None]
+                   + epsilons[:, None, None]).abs()  # (..., E+1, F, N)
+        conds = (shifted.amax(dim=-1) / shifted.amin(dim=-1)).amax(dim=-1)
+    ok = conds < cond_max
+    any_ok = ok.any(dim=-1)
+    first_ok = torch.argmax(ok.to(torch.int8), dim=-1)  # smallest epsilon that works
+    eps = torch.where(any_ok, epsilons[first_ok], torch.full((), -1.0, dtype=rdtype,
+                                                             device=CSD.device))
+    return psd_shift, eps, ini_cond_raw
+
+
+def apply_csd_reg(CSD, psd_shift, eps, eps_max=1e-3):
+    """Apply precomputed regularization: the per-frequency PSD-repair
+    shift plus the loading ``eps`` (``eps = -1`` applies `eps_max`, the
+    largest candidate)."""
+    eye = torch.eye(CSD.shape[-1], dtype=CSD.dtype, device=CSD.device)
+    eps_eff = torch.where(eps < 0, torch.full_like(eps, eps_max), eps)
+    return CSD + (psd_shift[..., None, None] + eps_eff[..., None, None, None]) * eye
+
+
+def psd_topup(CSDreg, rel_lift=3e-6, max_rounds=3):
+    """Lift each frequency bin that has no Cholesky factor by `rel_lift`
+    of its mean diagonal power, doubling up to `max_rounds` times: the
+    safety net for regularization parameters shared between matrices."""
+    diag = torch.diagonal(CSDreg, dim1=-2, dim2=-1).abs().mean(dim=-1)
+    eye = torch.eye(CSDreg.shape[-1], dtype=CSDreg.dtype, device=CSDreg.device)
+    lift = rel_lift * diag
+    for _ in range(max_rounds):
+        bad = (torch.linalg.cholesky_ex(CSDreg)[1] != 0)[..., None, None]
+        CSDreg = torch.where(bad, CSDreg + lift[..., None, None] * eye, CSDreg)
+        lift = 2 * lift
+    return CSDreg
+
+
+def regularize_csd(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
+    """
+    Condition-number loading of ``(..., F, N, N)`` CSDs: add the smallest
+    ``eps I`` that brings the worst per-frequency condition number below
+    `cond_max` (reference wilson_sf.py:197-262), after lifting
+    near-singular bins (:func:`csd_reg_params`).
+
+    Returns ``(CSDreg, eps, initial_cond_num)``; ``eps = -1`` marks failure.
+    """
+    psd_shift, eps, ini_cond = csd_reg_params(CSD, cond_max, eps_max, nSteps)
+    return apply_csd_reg(CSD, psd_shift, eps, eps_max=eps_max), eps, ini_cond
+
+
+def _plus_operator_onesided(g, M):
+    """The []+ operator on the non-negative half ``(B, F, N, N)`` of a
+    conjugate-symmetric spectrum of two-sided length ``M = 2F - 2``: the
+    causal part of its real lag sequence (half weight at lags 0 and M/2)
+    back in frequency, and half the lag-0 term (reference
+    wilson_sf.py:150-180)."""
+    beta = torch.fft.irfft(g, n=M, dim=1)
+    beta[:, 0] *= 0.5
+    g0 = beta[:, 0].to(g.dtype)
+    beta[:, M // 2] *= 0.5
+    beta[:, M // 2 + 1 :] = 0
+    return torch.fft.rfft(beta, dim=1), g0
+
+
+def wilson_sf(CSD, nIter=100, rtol=1e-6):
+    """
+    Wilson's spectral matrix factorization ``CSD = psi psi^H`` of
+    one-sided ``(..., F, N, N)`` CSDs (reference wilson_sf.py:16-128; the
+    JAX package's complex128 route of ``_wilson_sf_impl``): Hermitized
+    input scaled to unit mean auto-power, the zero-lag Cholesky start, one
+    exact inverse per step (``inv_ex``), the plus operator by FFTs along
+    frequency, and three exit tests per batch element (error below
+    `rtol`, a plateau once the error is below 1e-2, a blow-up 100x above
+    the best error after 5 steps). Bins with under 1e-9 of the largest
+    mean auto-power are left out of the error.
+
+    A batch runs as one Python loop with one host sync a step; each
+    element is frozen where it would have stopped alone.
+
+    Returns ``(Hfunc (..., F, N, N), Sigma (..., N, N), converged (...),
+    err (...), n_iter (...))``; the step count is the port's addition.
+    """
+    lead = CSD.shape[:-3]
+    F, N = CSD.shape[-3], CSD.shape[-1]
+    CSD = CSD.reshape((-1, F, N, N))
+    cdtype, rdtype = CSD.dtype, _real_dtype(CSD.dtype)
+    eye = torch.eye(N, dtype=cdtype, device=CSD.device)
+
+    CSD = (CSD + CSD.mH) / 2
+    scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=(-2, -1))  # (B,)
+    CSD = CSD / scale[:, None, None, None]
+    absCSD = CSD.abs()
+    M = 2 * F - 2
+    diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (B, F)
+    valid_bin = (diag_power > 1e-9 * diag_power.amax(dim=-1, keepdim=True))[..., None, None]
+
+    # start: Cholesky factor of the zero-lag covariance (the sum over the
+    # two-sided circle), the same at every frequency
+    gamma0 = CSD.sum(dim=1) + CSD[:, 1 : F - 1].conj().sum(dim=1)
+    gamma0 = ((gamma0 + gamma0.mH) / 2).real
+    psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (B, N, N)
+    psi = psi0[:, None].expand(-1, F, -1, -1).clone()
+    U = _cholesky_nan(CSD)
+
+    B = CSD.shape[0]
+    inf = torch.full((B,), float("inf"), dtype=rdtype, device=CSD.device)
+    err, prev_err, best_err = inf, inf, inf
+    it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
+
+    def running(err, prev_err, best_err, it):
+        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
+        blown = (err > 100 * best_err) & (it > 5)
+        return (err >= rtol) & (it < nIter) & ~(plateau | blown)
+
+    active = running(err, prev_err, best_err, it)
+    while bool(active.any()):
+        g = _inv_nan(psi) @ U
+        gI = g @ g.mH + eye
+        gplus, gplus_0 = _plus_operator_onesided(gI, M)
+        S = torch.triu(gplus_0)
+        S = S - S.mH
+        psi_new = psi @ (gplus + S[:, None])
+        psi0_new = psi0 @ (gplus_0 + S)
+        rel = (CSD - psi_new @ psi_new.mH).abs() / absCSD
+        new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
+        step = active[:, None, None]
+        psi = torch.where(step[..., None], psi_new, psi)
+        psi0 = torch.where(step, psi0_new, psi0)
+        prev_err = torch.where(active, err, prev_err)
+        err = torch.where(active, new_err, err)
+        best_err = torch.where(active, torch.minimum(best_err, new_err), best_err)
+        it = it + active
+        active = running(err, prev_err, best_err, it)
+
+    Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
+    Hfunc = psi @ _inv_nan(psi0)[:, None]
+    return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
+            (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
+
+
+def granger(CSD, Hfunc, Sigma):
+    """
+    Pairwise Granger-Geweke causality, Eq. 8 of Dhamala et al. 2008
+    (reference granger.py:10-80), for ``(..., F, N, N)`` CSDs:
+    ``G[..., f, i, j]`` is the causality i -> j. Bins with under 1e-9 of
+    the largest mean auto-power are returned as 0.
+    """
+    auto_spectra = torch.diagonal(CSD, dim1=-2, dim2=-1).abs()  # (..., F, N)
+    Smat = auto_spectra[..., None, :]  # [f, i, j] = S_jj(f)
+    Hmat = Hfunc.mT.abs() ** 2
+    auto_cov = torch.diagonal(Sigma, dim1=-2, dim2=-1).abs()  # (..., N)
+    # [i, j] = Sigma_ii - Sigma_ji^2 / Sigma_jj
+    denom = auto_cov[..., :, None] - Sigma.mT.abs() ** 2 / auto_cov[..., None, :]
+    G = torch.log(Smat / (Smat - denom[..., None, :, :] * Hmat))
+    dpow = auto_spectra.mean(dim=-1)
+    valid = dpow > 1e-9 * dpow.amax(dim=-1, keepdim=True)
+    return torch.where(valid[..., None, None], G, 0.0)
+
+
+# ------------------------------------------------------------------------ #
+# host float64 oracle (numpy; copied from syncopy_tpu ops/connectivity.py)
+# ------------------------------------------------------------------------ #
+
+
+def wilson_sf_host(CSD, nIter=100, rtol=1e-6):
+    """
+    Host float64 Wilson factorization in numpy, two-sided: the same
+    algorithm as :func:`wilson_sf`, used where the device route is gated
+    off or did not converge.
+    """
+    CSD = np.asarray(CSD, dtype=np.complex128)
+    CSD = (CSD + np.conj(np.swapaxes(CSD, 1, 2))) / 2
+    nFreq, N = CSD.shape[0], CSD.shape[1]
+    Ident = np.eye(N)
+
+    scale = np.mean(np.abs(np.einsum("fii->fi", CSD)))
+    CSD = CSD / scale
+    CSDfull = np.concatenate([CSD, np.conj(CSD[nFreq - 2 : 0 : -1])], axis=0)
+
+    diag_power = np.mean(np.abs(np.einsum("fii->fi", CSDfull)), axis=1)
+    valid_bin = (diag_power > 1e-9 * diag_power.max())[:, None, None]
+
+    gamma0 = np.fft.fft(CSDfull, axis=0)[0]
+    gamma0 = np.real((gamma0 + np.conj(gamma0.T)) / 2)
+    psi0 = np.linalg.cholesky(gamma0).T
+    psi = np.tile(psi0, (CSDfull.shape[0], 1, 1)).astype(np.complex128)
+    psi0 = psi0.astype(np.complex128)
+
+    U = np.linalg.cholesky(CSDfull)
+    err = np.inf
+    converged = False
+    n_lag = CSDfull.shape[0] // 2
+    prev_err = np.inf
+    for _ in range(nIter):
+        g = np.linalg.inv(psi) @ U
+        g = g @ np.conj(np.swapaxes(g, 1, 2)) + Ident
+        beta = np.real(np.fft.ifft(g, axis=0)).astype(np.complex128)
+        beta[0] *= 0.5
+        g0 = beta[0].copy()
+        beta[n_lag] *= 0.5
+        beta[n_lag + 1 :] = 0
+        gplus = np.fft.fft(beta, axis=0)
+        S = np.triu(g0)
+        S = S - np.conj(S.T)
+        psi = psi @ (gplus + S)
+        psi0 = psi0 @ (g0 + S)
+        CSDfac = psi @ np.conj(np.swapaxes(psi, 1, 2))
+        rel = np.abs(CSDfull - CSDfac) / np.abs(CSDfull)
+        err = float(np.max(np.where(valid_bin, rel, 0.0)))
+        if err < rtol:
+            converged = True
+            break
+        if err < 1e-2 and prev_err - err < 1e-4 * err:
+            # fixed point above tolerance: no further progress possible
+            break
+        prev_err = err
+
+    Sigma = (psi0 @ psi0.T) * scale
+    Hfunc = psi @ np.linalg.inv(psi0)
+    return Hfunc[:nFreq], Sigma, converged, err
+
+
+def regularize_csd_host(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
+    """Host float64 counterpart of :func:`regularize_csd` (PSD repair,
+    then the smallest loading by SVD condition numbers)."""
+    CSD = np.asarray(CSD, dtype=np.complex128)
+    I = np.eye(CSD.shape[1])
+    CSDh = (CSD + np.conj(np.swapaxes(CSD, 1, 2))) / 2
+    lam = np.linalg.eigvalsh(CSDh)
+    lam_min = lam.min(axis=1)
+    lam_floor = 1e-6 * np.abs(lam).max(axis=1)
+    psd_shift = np.where(lam_min < lam_floor, lam_floor - lam_min, 0.0)
+    CSD = CSD + psd_shift[:, None, None] * I
+    ini = float(np.linalg.cond(CSD).max())
+    if ini < cond_max:
+        return CSD, 0.0, ini
+    for eps in np.logspace(-10, np.log10(eps_max), nSteps):
+        CSDreg = CSD + eps * I
+        if float(np.linalg.cond(CSDreg).max()) < cond_max:
+            return CSDreg, float(eps), ini
+    return CSDreg, -1.0, ini
+
+
+def granger_host(CSD, Hfunc, Sigma):
+    """Host float64 counterpart of :func:`granger` (same Eq. 8, same
+    zeroing of near-zero-power bins)."""
+    CSD, Hfunc, Sigma = (np.asarray(a) for a in (CSD, Hfunc, Sigma))
+    nChannels = CSD.shape[1]
+    auto_spectra = np.abs(np.einsum("fii->fi", CSD))
+    Smat = auto_spectra[:, None, :] * np.ones((nChannels, 1))
+    Hmat = np.abs(np.swapaxes(Hfunc, 1, 2)) ** 2
+    SigmaJI = np.abs(Sigma.T)
+    auto_cov = np.abs(np.diag(Sigma))
+    SigmaII = auto_cov[None, :] * np.ones((nChannels, 1))
+    denom = SigmaII.T - SigmaJI**2 / SigmaII
+    denom = Smat - denom * Hmat
+    dpow = auto_spectra.mean(axis=1)
+    valid = dpow > 1e-9 * dpow.max()
+    # mask excluded bins before the log, so that only bins with power can
+    # raise the divide/log warnings
+    ratio = np.where(valid[:, None, None], Smat / np.where(
+        valid[:, None, None], denom, 1.0), 1.0)
+    return np.log(ratio)

@@ -77,9 +77,20 @@ def test_process_single_trial_matches_jax():
 
 
 def test_exact_fft_not_ported_yet():
-    cr, _ = _routines(100, 4, exact_fft=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cr.process_batch_sum(torch.zeros(2, 100, 3), 2, **cr.cfg)
+    """exact_fft, once unported, is the float64 CSD Granger takes: the
+    padded trial sum and the single-trial CSD against the JAX package's
+    double-float32 ones (DC bin with power: no demeaned taper here)."""
+    T, C = 100, 3
+    cr, jcr = _routines(T, 4, exact_fft=True)
+    batch = np.random.default_rng(14).normal(size=(4, T, C)).astype(np.float32)
+    batch[3] = np.nan  # a padding row
+    got = cr.process_batch_sum(torch.from_numpy(batch), 3, **cr.cfg).numpy()
+    want = np.asarray(jcr.process_batch_sum(jnp.asarray(batch), jnp.int32(3), **jcr.cfg))
+    assert got.dtype == np.complex64 and got.shape == want.shape
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+    one = cr.process_single_trial(torch.from_numpy(batch[0]), **cr.cfg).numpy()
+    assert np.abs(one - cr.process_batch_sum(torch.from_numpy(batch[:1]), 1, **cr.cfg).numpy()
+                  ).max() == 0
 
 
 def test_engine_keeps_single_trials_like_jax():

@@ -1,10 +1,12 @@
 # -*- coding: utf-8 -*-
 # Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
 # PPC resultant) against complex128 oracles and their plain versions, and
-# the coherence and PPC main paths on the card against the same paths on
+# the coherence, PPC and Granger main paths on the card against the same paths on
 # the CPU. They skip where no CUDA device is present (the kernels have no
 # CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+import warnings
 
 import numpy as np
 import pytest
@@ -350,3 +352,106 @@ def test_ppc_kernel_bitwise_deterministic(cuda_device):
 def test_ppc_kernel_occupancy(cuda_device, K):
     threads, blocks = pk.kernel_occupancy(K)
     assert threads == 128 and blocks >= 1
+
+
+def _ar2_network(n_chan, n_trials, n_samples, seed):
+    """(trials, samples, channels) float64 AR(2) network (a spectral peak
+    at 0.2 of the sampling rate) in which channel 1 drives channel 0."""
+    rng = np.random.default_rng(seed)
+    m1 = np.diag(np.full(n_chan, 0.55))
+    m1[0, 1] = 0.25
+    x = rng.normal(size=(n_trials, n_samples, n_chan))
+    for t in range(2, n_samples):
+        x[:, t] += x[:, t - 1] @ m1.T - 0.8 * x[:, t - 2]
+    return x
+
+
+def _ar2_spectra(n_chan, n_trials, n_samples, seed):
+    """(trials, 1, F, channels) complex64 hann spectra (demeaned taper) of
+    :func:`_ar2_network`, and the trialdefinition of one spectrum a trial."""
+    x = _ar2_network(n_chan, n_trials, n_samples, seed)
+    tapered = np.hanning(n_samples)[None, :, None] * (x - x.mean(axis=1, keepdims=True))
+    tapered -= tapered.mean(axis=1, keepdims=True)
+    spec = np.fft.rfft(tapered, axis=1)[:, None].astype(np.complex64)
+    trl = np.array([[k, k + 1, 0] for k in range(n_trials)])
+    return spec, trl
+
+
+@pytest.mark.cuda
+def test_granger_on_card_matches_cpu(cuda_device):
+    """method="granger" from the same spectra on the card and on the CPU:
+    G within 1e-6, equal diagnostics; the factorization of one CSD on
+    both stops at the same step. (From AnalogData the two devices' DC
+    bins hold different float64 rounding noise, which moves G by ~1e-3:
+    tests/test_torch_granger.py::test_granger_moves_with_the_dc_rounding_noise.)"""
+    from syncopy_tpu_torch.ops import connectivity as pc
+
+    spec, trl = _ar2_spectra(4, 60, 200, seed=21)
+    freq = np.fft.rfftfreq(200, 1 / 200.0)
+    sdata = spt.SpectralData(data=spec, samplerate=200.0, freq=freq, trialdefinition=trl)
+    launches = [ck.csd_accumulate_tiled.launches, ck.csd_accumulate.launches,
+                pk.ppc_accumulate_tiled.launches]
+    out = spt.connectivityanalysis(sdata, method="granger")
+    assert [ck.csd_accumulate_tiled.launches, ck.csd_accumulate.launches,
+            pk.ppc_accumulate_tiled.launches] == launches  # no kernel on this path
+    spt.set_device("cpu")
+    try:
+        ref = spt.connectivityanalysis(sdata, method="granger")
+    finally:
+        spt.set_device("cuda:0")
+    got, want = np.asarray(out.data), np.asarray(ref.data)
+    assert np.isfinite(got).all() and np.abs(got - want).max() < 1e-6
+    assert out.info["converged"] and ref.info["converged"]
+    assert out.info["reg. factor"] == ref.info["reg. factor"]
+    assert "host float64" not in out.log
+    f40 = np.argmin(np.abs(freq - 40))
+    assert got[0, f40, 1, 0] > 0.3 and got[0, f40, 0, 1] < 0.1
+
+    s = spec[:, 0].astype(np.complex128)
+    csd = torch.from_numpy(np.einsum("bfi,bfj->fij", s, s.conj()) / len(s))
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        C = pc.regularize_csd(csd.to(device), cond_max=1e4, eps_max=1e-1)[0]
+        H, Sigma, conv, err, n_iter = pc.wilson_sf(C, nIter=100, rtol=5e-6)
+        runs.append((H.cpu().numpy(), bool(conv), int(n_iter)))
+    (H_card, conv_card, n_card), (H_cpu, conv_cpu, n_cpu) = runs
+    assert conv_card == conv_cpu and n_card == n_cpu
+    assert np.abs(H_card - H_cpu).max() / np.abs(H_cpu).max() < 1e-8
+
+
+@pytest.mark.cuda
+def test_granger_from_analog_data_on_card(cuda_device):
+    """The float64 CSD stage and the device factorization from AnalogData:
+    converged, no host path, the direction of the drive."""
+    x = _ar2_network(4, 60, 200, seed=22).astype(np.float32)
+    trl = np.array([[k * 200, (k + 1) * 200, 0] for k in range(60)])
+    adata = spt.from_arrays(x.reshape(-1, 4), trl, 200.0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = spt.connectivityanalysis(adata, method="granger")
+    assert not [w for w in caught if "host float64" in str(w.message)]
+    G = np.asarray(out.data)
+    assert G.shape == (1, 101, 4, 4) and np.isfinite(G).all()
+    assert out.info["converged"] and out.info["max rel. err"] < 5e-6
+    f40 = np.argmin(np.abs(out.freq - 40))
+    assert G[0, f40, 1, 0] > 0.3 and G[0, f40, 0, 1] < 0.1
+
+
+@pytest.mark.cuda
+def test_singular_inputs_give_nan_on_card(cuda_device):
+    """A CSD bin without a Cholesky factor and a singular psi take the
+    NaN-safe path through cholesky_ex / inv_ex: no exception, no host
+    sync to check them, NaN where the JAX package gives NaN."""
+    from syncopy_tpu_torch.ops import connectivity as pc
+
+    spec, _ = _ar2_spectra(3, 30, 64, seed=24)
+    s = torch.from_numpy(spec[:, 0]).to(cuda_device, torch.complex128)
+    C = torch.einsum("bfi,bfj->fij", s, s.conj()) / len(s)
+    C[4] = -C[4]
+    H, Sigma, conv, err, n_iter = pc.wilson_sf(C, nIter=20, rtol=5e-6)
+    assert not bool(conv) and bool(torch.isnan(err)) and int(n_iter) == 1
+    assert bool(pc._inv_nan(torch.zeros((2, 3, 3), dtype=torch.complex128,
+                                        device=cuda_device)).isnan().all())
+    lo, hi, _ = pc.csd_lam_extents(C[None])
+    assert bool(torch.isfinite(lo).all()) and bool((lo <= hi).all())
+    assert bool((lo[0, 4] < 0))  # the negated bin's smallest eigenvalue
