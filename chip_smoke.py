@@ -44,7 +44,31 @@ Phases, each of which raises on failure (non-zero exit):
    Its CSD is held against an independent float64 CSD. Prints the warm
    wall, a stage split, both regularization routes' times, the inverse's
    share of a Wilson step and the peak device memory; then the same at
-   128 channels (the Cholesky-bisection route), without the oracle.
+   128 channels (the Cholesky-bisection route), without the oracle;
+9. coh jackknife: connectivityanalysis(method="coh", tapsmofrq=2,
+   jackknife=True) on the first 500 trials of phase 6's data, cut from
+   1000 to bound the script's time (``--jackknife-trials 1000`` runs the
+   north-star shape, whose 1000 x 501 x 64 x 64 complex64 single-trial CSD
+   stack, 16.4 GB, goes through the host; 8.2 GB at 500). Checked against
+   float64 on the card in trial groups (the CSD sum, the leave-one-out
+   coherences and their mean, then the centred second moment): the
+   coherence to 1e-5, jack_var relative to its maximum, jack_bias
+   absolute;
+10. granger jackknife: connectivityanalysis(method="granger",
+   jackknife=True) on 200 trials x 16 channels x 1000 samples of phase 8's
+   AR(2) network, all 200 replicates (the JAX package's
+   granger_jackknife16_device row): the device route, every replicate
+   converged with max rel. err < 5e-6, four replicates (and any the
+   routine had to factorize again two-sided) within 1e-5 of phase 8's
+   two-sided float64 factorization of the same regularized replicate
+   CSD, jack_var and jack_bias against float64 numpy from the replicates;
+   prints replicates/s;
+11. corr: connectivityanalysis(method="corr") on phase 6's data at 64
+   channels, checked against a float64 FFT cross-correlation on the card
+   to 1e-5; then at 128 channels (BASELINE config #3's width), timed.
+Phases 9 to 11 each print their warm wall, peak device memory and peak
+host RSS, and the launch counters, which stay at 0 there: these paths
+run no CUDA kernel of the port.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
@@ -58,7 +82,8 @@ launches none of them. The last line is ``{"ok": true, "device":
     python3 chip_smoke.py --save-csd DIR
 
 also writes the 64-channel Granger CSD and the port's result there
-(``granger_csd64.npz``), for scripts/granger_compare_jax.py.
+(``granger_csd64.npz``), for scripts/granger_compare_jax.py;
+``--jackknife-trials N`` sets phase 9's trial count.
 """
 
 import argparse
@@ -88,6 +113,17 @@ GRANGER_ABS_TOL = 1e-5
 #: bar for the port's Granger CSD against an independent float64 one,
 #: relative to its maximum, off the demeaned DC bin (both round to complex64)
 GRANGER_CSD_REL_TOL = 1e-6
+
+#: bars for the jackknife against float64: jack_var relative to its
+#: maximum, jack_bias absolute
+JACK_VAR_REL_TOL = 1e-5
+JACK_BIAS_ABS_TOL = 1e-5
+#: trials of the coherence jackknife by default (the north star has 1000)
+JACK_COH_TRIALS = 500
+#: the Granger jackknife's shape (the JAX package's granger_jackknife16_device row)
+JACK_GRANGER_TRIALS, JACK_GRANGER_CHANNELS = 200, 16
+#: bar for the cross-correlation against a float64 FFT cross-correlation
+CORR_ABS_TOL = 1e-5
 
 N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
 
@@ -336,13 +372,13 @@ def coherence_f64(data, taper, taper_opt):
     return (csd.abs() / torch.sqrt(diag[:, :, None] * diag[:, None, :])).cpu().numpy()
 
 
-def ar2_network(n_chan, seed=AR2_SEED):
+def ar2_network(n_chan, seed=AR2_SEED, n_trials=N_TRIALS):
     """(trials x samples, channels) float32 AR(2) network from numpy, all
     trials at once: x_t = M1 x_{t-1} + a2 x_{t-2} + e_t with M1 = a1 I +
     AdjMat^T and AdjMat[1, 0] the coupling (channel 1 drives channel 0);
     the first two samples are the noise itself."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N_TRIALS, N_SAMPLES, n_chan), dtype=np.float32)
+    x = rng.standard_normal((n_trials, N_SAMPLES, n_chan), dtype=np.float32)
     m1t = np.float32(AR2_ALPHAS[0]) * np.eye(n_chan, dtype=np.float32)  # M1^T
     m1t[1, 0] = AR2_COUPLING
     a2 = np.float32(AR2_ALPHAS[1])
@@ -373,29 +409,30 @@ def granger_csd_f64(data, n_chan, chunk=100):
     return (csd / N_TRIALS).to(torch.complex64).to(torch.complex128)
 
 
-def granger_oracle(csd, rtol, n_iter=100, cond_max=1e4, eps_max=1e-1):
+def granger_oracle(csd, rtol, n_iter=100, cond_max=1e4, eps_max=1e-1, regularize=True):
     """The port's host float64 path (regularize_csd_host, wilson_sf_host,
     granger_host) transcribed into torch, on the complex128 (F, N, N)
     `csd`'s device: PSD repair and the loading chosen by SVD condition
-    numbers; Wilson on the two-sided spectrum with an LU inverse a step
-    and FFTs over all 2F - 2 bins; Eq. 8. Returns (G, converged, err,
-    steps, eps)."""
+    numbers (unless `regularize` is False: `csd` is regularized already);
+    Wilson on the two-sided spectrum with an LU inverse a step and FFTs
+    over all 2F - 2 bins; Eq. 8. Returns (G, converged, err, steps, eps)."""
     import torch
 
     F, N = csd.shape[0], csd.shape[-1]
     eye = torch.eye(N, dtype=csd.dtype, device=csd.device)
-    lam = torch.linalg.eigvalsh((csd + csd.mH) / 2)
-    floor = 1e-6 * lam.abs().amax(dim=1)
-    lam_min = lam.amin(dim=1)
-    csd = csd + torch.where(lam_min < floor, floor - lam_min, 0.0)[:, None, None] * eye
     eps = 0.0
-    if torch.linalg.cond(csd).amax().item() >= cond_max:
-        eps = -1.0
-        for cand in np.logspace(-10, np.log10(eps_max), 15):
-            if torch.linalg.cond(csd + cand * eye).amax().item() < cond_max:
-                eps = float(cand)
-                break
-    csd = csd + (eps_max if eps < 0 else eps) * eye
+    if regularize:
+        lam = torch.linalg.eigvalsh((csd + csd.mH) / 2)
+        floor = 1e-6 * lam.abs().amax(dim=1)
+        lam_min = lam.amin(dim=1)
+        csd = csd + torch.where(lam_min < floor, floor - lam_min, 0.0)[:, None, None] * eye
+        if torch.linalg.cond(csd).amax().item() >= cond_max:
+            eps = -1.0
+            for cand in np.logspace(-10, np.log10(eps_max), 15):
+                if torch.linalg.cond(csd + cand * eye).amax().item() < cond_max:
+                    eps = float(cand)
+                    break
+        csd = csd + (eps_max if eps < 0 else eps) * eye
 
     C = (csd + csd.mH) / 2
     scale = torch.diagonal(C, dim1=1, dim2=2).abs().mean()
@@ -655,12 +692,367 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
     return summary
 
 
+def north_star_data(n_chan=N_CHANNELS):
+    """Phase 6's data: float32 normal noise from seed 0, 1000 trials x 1000
+    samples at 1 kHz; and its trialdefinition."""
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(N_TRIALS * N_SAMPLES, n_chan)).astype("f4")
+    trl = np.zeros((N_TRIALS, 3))
+    trl[:, 0] = np.arange(N_TRIALS) * N_SAMPLES
+    trl[:, 1] = trl[:, 0] + N_SAMPLES
+    return data, trl
+
+
+class HostPeak:
+    """The process's peak resident set size over a block, in GB, and what
+    was resident when it began (`start_gb`): sampled every 20 ms from
+    /proc/self/statm by a thread; where that file cannot be read,
+    getrusage's peak since the process started (`since_start`)."""
+
+    def __enter__(self):
+        import threading
+
+        self.gb, self.start_gb, self.since_start = 0.0, None, False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    gb = int(f.read().split()[1]) * page / 1e9
+                self.gb = max(self.gb, gb)
+                if self.start_gb is None:
+                    self.start_gb = gb
+            except (OSError, ValueError, IndexError):
+                self.since_start = True
+                return
+            if self._stop.wait(0.02):
+                return
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        if self.since_start:
+            self.gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+        return False
+
+
+def zero_launches():
+    from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import ppc_kernels as pk
+
+    ck.csd_accumulate_tiled.launches = 0
+    ck.csd_accumulate.launches = 0
+    pk.ppc_accumulate_tiled.launches = 0
+
+
+def read_launches(name):
+    """The three kernels' launches since zero_launches(): none may have
+    run on the paths of phases 9 to 11."""
+    from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import ppc_kernels as pk
+
+    launches = {"csd_accumulate_tiled": ck.csd_accumulate_tiled.launches,
+                "csd_accumulate": ck.csd_accumulate.launches,
+                "ppc_accumulate_tiled": pk.ppc_accumulate_tiled.launches}
+    print("{}: kernel launches {}".format(name, launches))
+    if any(launches.values()):
+        raise AssertionError("{} launched kernels {}".format(name, launches))
+
+
+def measured_call(name, fn):
+    """One checked call of `fn` with the launch counters at 0, peak device
+    memory and peak host RSS reset before it; returns its result and
+    (wall s, peak device GB, peak host GB)."""
+    import torch
+
+    import gc
+
+    gc.collect()  # what earlier phases left in reference cycles
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with HostPeak() as host:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    read_launches(name)
+    dev_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("{}: first call {:.3f} s; peak device memory {:.3f} GB; peak host RSS {:.3f} GB{}".format(
+        name, wall, dev_gb, host.gb, " (since the process started)" if host.since_start
+        else " ({:.3f} GB resident before the call)".format(host.start_gb)))
+    return res, (wall, dev_gb, host.gb)
+
+
+def warm_wall(name, fn, reps=1):
+    """Host-clock seconds of `reps` more calls of `fn`, synchronized."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print("{} warm wall: median {:.4f} s of {} ({})".format(
+        name, wall, reps, ", ".join("{:.4f}".format(w) for w in walls)))
+    return wall
+
+
+def coh_jackknife_f64(data, taper, taper_opt, n_trials, group=50):
+    """The coherence jackknife of the same math in float64 on the card, in
+    trial groups: the trial x taper CSD sum S; then each trial's
+    leave-one-out coherence of (S - csd_k) / (n - 1), summed into their
+    mean; then their centred second moment. Returns (direct coherence,
+    jack_var, jack_bias) as float64 numpy (F, C, C)."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    x_all = torch.from_numpy(data).to("cuda").reshape(n_trials, N_SAMPLES, -1)
+    tapers = torch.from_numpy(
+        make_tapers(taper, taper_opt, N_SAMPLES, N_SAMPLES, FS)).to("cuda", torch.float64)
+
+    def csds(b0):
+        x = x_all[b0 : b0 + group].double()
+        x = x - x.mean(dim=1, keepdim=True)
+        spec = torch.fft.rfft(tapers[None, :, :, None] * x[:, None], n=N_SAMPLES, dim=2)
+        rows = spec.transpose(1, 2)  # (b, F, K, C)
+        return torch.matmul(rows.transpose(2, 3), rows.conj()) / tapers.shape[0]
+
+    def coherence(c):
+        root = torch.sqrt(torch.diagonal(c, dim1=-2, dim2=-1).real)
+        return c.abs() / (root[..., :, None] * root[..., None, :])
+
+    starts = range(0, n_trials, group)
+    S = sum(csds(b0).sum(dim=0) for b0 in starts)
+    n = n_trials
+    mean = sum(coherence((S - csds(b0)) / (n - 1)).sum(dim=0) for b0 in starts) / n
+    m2 = sum(((coherence((S - csds(b0)) / (n - 1)) - mean) ** 2).sum(dim=0) for b0 in starts)
+    direct = coherence(S)
+    return (direct.cpu().numpy(), ((n - 1) * m2).cpu().numpy(),
+            ((n - 1) * (mean - direct)).cpu().numpy())
+
+
+def coh_jackknife_phase(spt, taper, taper_opt, n_trials=JACK_COH_TRIALS):
+    """Phase 9: coherence with jackknife error bars at the north-star
+    shape, against float64 on the card; then a warm call."""
+    import torch
+
+    data, trl = north_star_data()
+    data, trl = data[: n_trials * N_SAMPLES], trl[:n_trials]
+    adata = spt.from_arrays(data, trl, FS)
+    out, (first, dev_gb, host_gb) = measured_call("coh jackknife", lambda: spt.connectivityanalysis(
+        adata, method="coh", tapsmofrq=2, jackknife=True))
+    got = np.asarray(out.data)
+    var = np.asarray(out._get_extra_dataset("jack_var"))
+    bias = np.asarray(out._get_extra_dataset("jack_bias"))
+    shape = (1, N_SAMPLES // 2 + 1, N_CHANNELS, N_CHANNELS)
+    for name, arr in (("coherence", got), ("jack_var", var), ("jack_bias", bias)):
+        if arr.shape != shape or arr.dtype != np.float32 or not np.isfinite(arr).all():
+            raise AssertionError("coh jackknife {}: shape {} dtype {} or not finite".format(
+                name, arr.shape, arr.dtype))
+    del out
+    t0 = time.perf_counter()
+    direct, var64, bias64 = coh_jackknife_f64(data, taper, taper_opt, n_trials)
+    torch.cuda.empty_cache()
+    coh_err = float(np.abs(got[0] - direct).max())
+    var_err = float(np.abs(var[0] - var64).max() / np.abs(var64).max())
+    bias_err = float(np.abs(bias[0] - bias64).max())
+    print("coh jackknife, {} trials: against float64 ({:.1f} s): coherence max abs err {:.3e}; "
+          "jack_var max err {:.3e} of its maximum {:.4e}; jack_bias max abs err {:.3e} (max "
+          "|bias| {:.4e})".format(n_trials, time.perf_counter() - t0, coh_err, var_err,
+                                  float(np.abs(var64).max()), bias_err,
+                                  float(np.abs(bias64).max())))
+    if not coh_err < COH_ABS_TOL:
+        raise AssertionError("coh jackknife coherence err {:.3e} >= {}".format(coh_err, COH_ABS_TOL))
+    if not var_err < JACK_VAR_REL_TOL:
+        raise AssertionError("jack_var err {:.3e} >= {}".format(var_err, JACK_VAR_REL_TOL))
+    if not bias_err < JACK_BIAS_ABS_TOL:
+        raise AssertionError("jack_bias err {:.3e} >= {}".format(bias_err, JACK_BIAS_ABS_TOL))
+    wall = warm_wall("coh jackknife", lambda: spt.connectivityanalysis(
+        adata, method="coh", tapsmofrq=2, jackknife=True))
+    torch.cuda.empty_cache()
+    return {"trials": n_trials, "first": first, "wall": wall, "peak_device_gb": dev_gb,
+            "peak_host_gb": host_gb, "coh_err": coh_err, "var_err": var_err, "bias_err": bias_err}
+
+
+def granger_jackknife_phase(spt):
+    """Phase 10: Granger with jackknife error bars on phase 8's AR(2)
+    network at the JAX package's granger_jackknife16_device shape."""
+    import torch
+
+    from syncopy_tpu_torch.connectivity import connectivity_analysis as pca
+    from syncopy_tpu_torch.ops import connectivity as pc
+    from syncopy_tpu_torch.statistics import jackknifing as jk
+
+    n_trials, n_chan = JACK_GRANGER_TRIALS, JACK_GRANGER_CHANNELS
+    data = ar2_network(n_chan, n_trials=n_trials)
+    trl = np.zeros((n_trials, 3))
+    trl[:, 0] = np.arange(n_trials) * N_SAMPLES
+    trl[:, 1] = trl[:, 0] + N_SAMPLES
+    adata = spt.from_arrays(data, trl, FS)
+
+    # the replicate CSDs and the replicate Granger spectra the call forms
+    seen, originals = {}, (jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife)
+
+    def replicates(ensemble):
+        seen["replicates"] = originals[0](ensemble)
+        return seen["replicates"]
+
+    def bias_var(direct, jack_rep):
+        seen["jack_rep"] = jack_rep
+        return originals[1](direct, jack_rep)
+
+    def stage(*args):
+        t0 = time.perf_counter()
+        originals[2](*args)
+        torch.cuda.synchronize()
+        seen["stage_s"] = time.perf_counter() - t0
+
+    jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife = replicates, bias_var, stage
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out, (first, dev_gb, host_gb) = measured_call("granger jackknife", lambda: (
+                spt.connectivityanalysis(adata, method="granger", jackknife=True)))
+    finally:
+        jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife = originals
+    host_route = [str(w.message) for w in caught if "host float64" in str(w.message)
+                  or "did NOT converge" in str(w.message) or "singular" in str(w.message)]
+    if host_route or "host float64" in out.log or "host float64" in seen["jack_rep"].log:
+        raise AssertionError("granger jackknife took the host route: {}".format(host_route))
+    rep_info, info = dict(seen["jack_rep"].info), dict(out.info)
+    G, G_rep = np.asarray(out.data)[0], np.asarray(seen["jack_rep"].data)
+    var = np.asarray(out._get_extra_dataset("jack_var"))[0]
+    bias = np.asarray(out._get_extra_dataset("jack_bias"))[0]
+    print("granger jackknife, {} trials x {} ch: direct {}; replicates {}; {:.1f} replicates/s in "
+          "the replicate stage ({:.3f} s: Granger of the replicates, bias and variance)".format(
+              n_trials, n_chan, info, rep_info, n_trials / seen["stage_s"], seen["stage_s"]))
+    if G_rep.shape != (n_trials, N_SAMPLES // 2 + 1, n_chan, n_chan) or not np.isfinite(G_rep).all():
+        raise AssertionError("granger replicates shape {} or not finite".format(G_rep.shape))
+    if not (info["converged"] is True and rep_info["converged"] is True
+            and rep_info["max rel. err"] < 5e-6 and info["max rel. err"] < 5e-6):
+        raise AssertionError("granger jackknife did not converge: {} {}".format(info, rep_info))
+
+    # four replicates against the two-sided float64 factorization of the
+    # same regularized replicate CSD: the regularization of the replicates'
+    # mean, shared, and the Cholesky top-up, as the port applies them
+    reps = torch.from_numpy(np.asarray(seen["replicates"].data)).to("cuda", torch.complex128)
+    shift, eps, _ = pc.csd_reg_params(reps.mean(dim=0), cond_max=1e4, eps_max=1e-1)
+    regs = pc.psd_topup(pc.apply_csd_reg(reps, shift, eps, eps_max=1e-1))
+    # the replicates that the routine's one-sided iteration leaves
+    # unconverged, which it factorizes again two-sided: held too
+    retried = (~pc.wilson_sf(regs, nIter=100, rtol=5e-6)[2]).nonzero().ravel().tolist()
+    print("granger jackknife: replicates the one-sided iteration leaves unconverged (retried "
+          "two-sided on the device): {}".format(retried))
+    g_err = 0.0
+    for k in sorted({0, 67, 133, n_trials - 1, *retried}):
+        G_or, conv, err, steps, _ = granger_oracle(regs[k], 5e-6, regularize=False)
+        g_err = max(g_err, float(np.abs(G_rep[k] - G_or.cpu().numpy()).max()))
+        print("granger replicate {}: float64 oracle converged {} in {} steps, err {:.3e}".format(
+            k, conv, steps, err))
+    del reps, regs
+    torch.cuda.empty_cache()
+    rep64 = G_rep.astype(np.float64)
+    mean = rep64.mean(axis=0)
+    var64 = (n_trials - 1) * ((rep64 - mean) ** 2).sum(axis=0)
+    bias64 = (n_trials - 1) * (mean - G.astype(np.float64))
+    var_err = float(np.abs(var - var64).max() / np.abs(var64).max())
+    bias_err = float(np.abs(bias - bias64).max())
+    print("granger jackknife: held replicates max abs err vs float64 {:.3e}; jack_var max err "
+          "{:.3e} of its maximum {:.4e}; jack_bias max abs err {:.3e} (max |bias| {:.4e})".format(
+              g_err, var_err, float(np.abs(var64).max()), bias_err, float(np.abs(bias64).max())))
+    if not g_err < GRANGER_ABS_TOL:
+        raise AssertionError("granger replicate err {:.3e} >= {}".format(g_err, GRANGER_ABS_TOL))
+    if not var_err < JACK_VAR_REL_TOL:
+        raise AssertionError("granger jack_var err {:.3e} >= {}".format(var_err, JACK_VAR_REL_TOL))
+    if not bias_err < JACK_BIAS_ABS_TOL:
+        raise AssertionError("granger jack_bias err {:.3e} >= {}".format(
+            bias_err, JACK_BIAS_ABS_TOL))
+    wall = warm_wall("granger jackknife", lambda: spt.connectivityanalysis(
+        adata, method="granger", jackknife=True), reps=3)
+    print("granger jackknife: {:.1f} replicates/s over the whole warm call".format(n_trials / wall))
+    return {"first": first, "wall": wall, "peak_device_gb": dev_gb, "peak_host_gb": host_gb,
+            "stage_s": seen["stage_s"], "g_err": g_err, "var_err": var_err,
+            "bias_err": bias_err}
+
+
+def corr_f64(data, n_chan, group=100):
+    """The trial-averaged cross-correlation in float64 on the card:
+    demeaned trials, the trial sum of their cross spectra at the padded
+    length 2^ceil(log2(2T - 1)), one inverse FFT, lags 0 .. T/2 with the
+    reference's upper-triangle offset at even T, divided by the overlap,
+    normalized by the 0-lag auto-covariances. Returns (nLags, C, C)."""
+    import torch
+
+    x_all = torch.from_numpy(data).to("cuda").reshape(N_TRIALS, N_SAMPLES, n_chan)
+    L = 1 << int(2 * N_SAMPLES - 1).bit_length()
+    S = torch.zeros((L // 2 + 1, n_chan, n_chan), dtype=torch.complex128, device="cuda")
+    for b0 in range(0, N_TRIALS, group):
+        x = x_all[b0 : b0 + group].double()
+        X = torch.fft.rfft(x - x.mean(dim=1, keepdim=True), n=L, dim=1)  # (b, Lf, C)
+        S += torch.matmul(X.permute(1, 2, 0), X.conj().permute(1, 0, 2))
+    R = torch.fft.irfft(S, n=L, dim=0)
+    n_lags = N_SAMPLES // 2 if N_SAMPLES % 2 == 0 else N_SAMPLES // 2 + 1
+    delta = 1 - N_SAMPLES % 2
+    lower = torch.tril(torch.ones((n_chan, n_chan), dtype=torch.bool, device="cuda"))
+    cc = torch.where(lower, R[:n_lags], R[delta : n_lags + delta])
+    cc = cc / torch.arange(N_SAMPLES, N_SAMPLES - n_lags, -1, device="cuda")[:, None, None]
+    root = torch.sqrt(torch.diagonal(cc[0]))
+    return (cc / (root[:, None] * root[None, :])).cpu().numpy()
+
+
+def corr_phase(spt):
+    """Phase 11: cross-correlation at 64 channels against float64 on the
+    card, then at 128 channels, timed."""
+    import torch
+
+    summary = {}
+    for n_chan in (N_CHANNELS, 2 * N_CHANNELS):
+        data, trl = north_star_data(n_chan)
+        adata = spt.from_arrays(data, trl, FS)
+        name = "corr {} ch".format(n_chan)
+        out, (first, dev_gb, host_gb) = measured_call(name, lambda: spt.connectivityanalysis(
+            adata, method="corr"))
+        got = np.asarray(out.data)
+        if got.shape != (N_SAMPLES // 2, 1, n_chan, n_chan) or got.dtype != np.float32 \
+                or not np.isfinite(got).all():
+            raise AssertionError("{} shape {} dtype {} or not finite".format(
+                name, got.shape, got.dtype))
+        entry = {"first": first, "peak_device_gb": dev_gb, "peak_host_gb": host_gb}
+        if n_chan == N_CHANNELS:
+            err = float(np.abs(got[:, 0] - corr_f64(data, n_chan)).max())
+            print("{}: max abs err vs float64 FFT cross-correlation {:.3e}".format(name, err))
+            if not err < CORR_ABS_TOL:
+                raise AssertionError("{} err {:.3e} >= {}".format(name, err, CORR_ABS_TOL))
+            entry["err"] = err
+        entry["wall"] = warm_wall(name, lambda: spt.connectivityanalysis(adata, method="corr"),
+                                  reps=5)
+        print("{}: {:.1f} trials/s".format(name, N_TRIALS / entry["wall"]))
+        summary[n_chan] = entry
+        del data, adata, out
+        torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--save-csd", metavar="DIR",
                         help="write the 64-channel Granger CSD and result into DIR")
+    parser.add_argument("--jackknife-trials", type=int, default=JACK_COH_TRIALS, metavar="N",
+                        help="trials of the coherence jackknife (phase 9), at most {}".format(
+                            N_TRIALS))
     args = parser.parse_args()
 
     # -- 1. device ------------------------------------------------------- #
@@ -899,6 +1291,15 @@ def main():
     # -- 8. granger main path --------------------------------------------- #
     for n_chan, oracle in ((N_CHANNELS, True), (2 * N_CHANNELS, False)):
         granger_phase(spt, n_chan, oracle, args.save_csd if n_chan == N_CHANNELS else None)
+
+    # -- 9. coh jackknife --------------------------------------------------- #
+    coh_jackknife_phase(spt, taper, taper_opt, min(args.jackknife_trials, N_TRIALS))
+
+    # -- 10. granger jackknife ---------------------------------------------- #
+    granger_jackknife_phase(spt)
+
+    # -- 11. corr ------------------------------------------------------------ #
+    corr_phase(spt)
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",

@@ -18,6 +18,7 @@ torch.backends.cudnn.allow_tf32 = False
 from .datatype import AnalogData, CrossSpectralData, SpectralData, Selector  # noqa: E402
 from .connectivity import connectivityanalysis  # noqa: E402
 from .engine.routine import set_device  # noqa: E402
+from .statistics import itc, mean, median, std, var  # noqa: E402
 
 __all__ = [
     "AnalogData",
@@ -26,7 +27,12 @@ __all__ = [
     "Selector",
     "connectivityanalysis",
     "from_arrays",
+    "itc",
+    "mean",
+    "median",
     "set_device",
+    "std",
+    "var",
 ]
 
 

@@ -1,22 +1,27 @@
 # -*- coding: utf-8 -*-
 #
-# Single-trial connectivity compute routines (main-path subset).
+# Single-trial connectivity compute routines.
 #
 # Port of syncopy_tpu/connectivity/ST_compRoutines.py: _CrossRoutine,
-# CrossSpectra, PPCSpectra and SpectralDyadicProduct. CrossCovariance lands
-# with ROADMAP Queue 1 item 8.
+# CrossSpectra, PPCSpectra, SpectralDyadicProduct and CrossCovariance.
 
 import numpy as np
 import torch
 
 from ..engine.routine import ComputationalRoutine
-from ..ops.connectivity import csd_sum_compensated, spectral_dyadic_product
+from ..ops.connectivity import (
+    _ccov_lag_geometry,
+    ccov_batch_sum,
+    cross_covariance_batch,
+    csd_sum_compensated,
+    spectral_dyadic_product,
+)
 from ..ops.csd_kernels import csd_accumulate_tiled
 from ..ops.ppc_kernels import ppc_accumulate_tiled
 from ..ops.spectral import detrend
 from ..ops.windows import make_tapers
 
-__all__ = ["CrossSpectra", "PPCSpectra", "SpectralDyadicProduct"]
+__all__ = ["CrossSpectra", "PPCSpectra", "SpectralDyadicProduct", "CrossCovariance"]
 
 
 def _take_labels(labels, indexer):
@@ -33,19 +38,8 @@ class _CrossRoutine(ComputationalRoutine):
 
     dimord = ["time", "freq", "channel_i", "channel_j"]
 
-    def _cross_trialdefinition(self, n_times):
-        if not self.keeptrials:
-            n_times = n_times[:1]
-        bounds = np.concatenate([[0], np.cumsum(n_times)])
-        trl = np.zeros((len(n_times), 3))
-        trl[:, 0] = bounds[:-1]
-        trl[:, 1] = bounds[1:]
-        return trl
-
     def process_metadata(self, data, out):
-        sdim = 0
-        n_times = [oshp[sdim] for oshp in self._per_trial_out_shapes_ordered]
-        out.trialdefinition = self._cross_trialdefinition(n_times)
+        out.trialdefinition = self.default_trialdefinition(data, out)
         out.samplerate = data.samplerate
         sel = self.selector
         chan = _take_labels(data.channel, getattr(sel, "channel", None))
@@ -125,12 +119,19 @@ class CrossSpectra(_CrossRoutine):
         return torch.matmul(rows.transpose(1, 2), rows.conj()) / K
 
     def process_single_trial(self, trial, **cfg):
-        if cfg.get("exact_fft"):
-            return self._exact_csd_sum(trial[None], 1, cfg)[None].to(torch.complex64)
-        tapered, K, nfft = self._tapered_batch(trial[None], cfg)
-        spec = self._batch_spectra(tapered, nfft, cfg)[0]  # (K, F, C)
-        CS = torch.einsum("kfi,kfj->fij", spec, spec.conj()) / K
-        return CS[None].to(torch.complex64)
+        return self.process_batch(trial[None], **cfg)[0]
+
+    def process_batch(self, batch, **cfg):
+        """Single-trial cross spectra of a batch, ``(B, 1, F, C, C)``
+        complex64: one batched rfft and one batched ``bkfi,bkfj->bfij``
+        product a chunk (the (K, C) Gram of :meth:`_exact_csd_sum` per
+        trial and frequency), in float64 with `exact_fft`, where the base
+        class would call :meth:`process_single_trial` once a trial."""
+        dtype = torch.float64 if cfg.get("exact_fft") else torch.float32
+        tapered, K, nfft = self._tapered_batch(batch, cfg, dtype)
+        rows = self._batch_spectra(tapered, nfft, cfg).transpose(1, 2)  # (B, F, K, C)
+        CS = torch.matmul(rows.transpose(2, 3), rows.conj()) / K
+        return CS[:, None].to(torch.complex64)
 
     def process_batch_sum(self, batch, n_valid, **cfg):
         """
@@ -165,8 +166,8 @@ class PPCSpectra(CrossSpectra):
     per-trial CSDs in registers.
     """
 
-    def process_single_trial(self, trial, **cfg):
-        cs = super().process_single_trial(trial, **cfg)
+    def process_batch(self, batch, **cfg):
+        cs = super().process_batch(batch, **cfg)
         # exact-zero bins are 0/0, as in the JAX package: they cannot occur
         # in tapered spectra of real data off the padding, which the batch
         # path masks by n_valid
@@ -224,9 +225,7 @@ class SpectralDyadicProduct(_CrossRoutine):
         return (per_time / K).to(torch.complex64)
 
     def process_metadata(self, data, out):
-        sdim = 0
-        n_times = [oshp[sdim] for oshp in self._per_trial_out_shapes_ordered]
-        out.trialdefinition = self._cross_trialdefinition(n_times)
+        out.trialdefinition = self.default_trialdefinition(data, out)
         out.samplerate = data.samplerate
         sel = self.selector
         chan = _take_labels(data.channel, getattr(sel, "channel", None))
@@ -237,3 +236,45 @@ class SpectralDyadicProduct(_CrossRoutine):
             out.channel_i = chan
             out.channel_j = chan
         out.freq = _take_labels(np.asarray(data.freq), getattr(sel, "freq", None))
+
+
+class CrossCovariance(_CrossRoutine):
+    """
+    Single-trial cross-covariance at non-negative lags of AnalogData
+    (reference ST_compRoutines.py:465-640). Output per trial ``(nLags, 1,
+    N, N)`` float32; the lags ride on the time axis, offset 0 at lag 0.
+    """
+
+    valid_kws = ["norm", "polyremoval"]
+
+    def __init__(self, samplerate=1.0, polyremoval=0, norm=False):
+        super().__init__(samplerate=samplerate, polyremoval=polyremoval, norm=norm, foi=None)
+
+    def output_trial_shape(self, trial_shape):
+        T, C = trial_shape
+        return (_ccov_lag_geometry(T)[0], 1, C, C), np.dtype(np.float32)
+
+    def process_single_trial(self, trial, **cfg):
+        return self.process_batch(trial[None], **cfg)[0]
+
+    def process_batch(self, batch, **cfg):
+        return cross_covariance_batch(batch, polyremoval=cfg["polyremoval"], norm=cfg["norm"])
+
+    def process_batch_sum(self, batch, n_valid, **cfg):
+        """The masked trial sum: the frequency-domain Gram and one inverse
+        FFT (:func:`ccov_batch_sum`). `norm` divides each trial by its own
+        standard deviations, which does not commute with the sum: then the
+        per-trial outputs are summed (the frontend never averages normed
+        trials: ``norm=bool(keeptrials)``)."""
+        if cfg["norm"]:
+            per_trial = self.process_batch(batch, **cfg)
+            valid = torch.arange(batch.shape[0], device=batch.device) < n_valid
+            return torch.where(valid[:, None, None, None, None], per_trial, 0.0).sum(dim=0)
+        return ccov_batch_sum(batch, n_valid, polyremoval=cfg["polyremoval"])
+
+    def process_metadata(self, data, out):
+        out.trialdefinition = self.default_trialdefinition(data, out)
+        out.samplerate = data.samplerate
+        chan = _take_labels(data.channel, getattr(self.selector, "channel", None))
+        out.channel_i = chan
+        out.channel_j = chan

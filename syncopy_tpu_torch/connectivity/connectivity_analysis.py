@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 #
-# connectivityanalysis: user-facing connectivity frontend (coh, csd, ppc,
-# granger).
+# connectivityanalysis: user-facing connectivity frontend (coh, corr, csd,
+# ppc, granger; jackknife error estimates for coh and granger).
 #
 # Port of syncopy_tpu/connectivity/connectivity_analysis.py. A single-trial
 # stage computes cross spectra, from AnalogData (CrossSpectra, PPCSpectra)
@@ -17,21 +17,26 @@
 # - granger: the averaged CSD (from AnalogData in float64 with demeaned
 #   tapers), then GrangerCausality (regularization, Wilson, Granger in
 #   complex128 on the device); with `channelcmb`, one batched
-#   factorization of all 2x2 pair CSDs. A CSD singular by construction
-#   (the rank gate) and a device factorization that did not converge go to
-#   the host float64 path, with a warning.
+#   factorization of all 2x2 pair CSDs of every window. A CSD singular by
+#   construction (the rank gate) and a device factorization that did not
+#   converge go to the host float64 path, with a warning.
+# - corr (AnalogData only): CrossCovariance's trial sum in the frequency
+#   domain with the normalization fused on, or single-trial normalized
+#   cross-covariances with keeptrials.
+# - jackknife (coh, granger): the single-trial CSDs, their mean as the
+#   direct estimate, the leave-one-out replicates (statistics/), the AV
+#   routine on both, then bias and variance as the datasets jack_bias and
+#   jack_var.
 # Not ported: the SPY_TPU_FUSED_PPC switch back to the two-pass route from
 # AnalogData and the SPY_GRANGER_HOST switch to the host factorization
 # (the port has no environment knobs), and the triangular and Hermitian
-# readback packs, workarounds for the TPU runtime's readback. corr and
-# jackknife raise NotImplementedError naming the ROADMAP item that ports
-# them.
+# readback packs, workarounds for the TPU runtime's readback.
 
 import numpy as np
 import torch
 
 from ..datatype.continuous_data import AnalogData, CrossSpectralData, SpectralData
-from ..shared.errors import SPYInfo, SPYTypeError, SPYValueError, SPYWarning, not_ported
+from ..shared.errors import SPYInfo, SPYTypeError, SPYValueError, SPYWarning
 from ..shared.input_processors import (
     check_effective_parameters,
     check_passed_kwargs,
@@ -47,11 +52,6 @@ __all__ = ["connectivityanalysis"]
 
 availableMethods = ("coh", "corr", "granger", "csd", "ppc")
 connectivity_outputs = ("abs", "pow", "complex", "fourier", "angle", "real", "imag")
-
-#: where each method that is not ported yet is queued
-_NOT_PORTED = {
-    "corr": "ROADMAP Queue 1 item 8 (CrossCovariance)",
-}
 
 #: retry a device Granger factorization that did not converge with the
 #: host float64 one (the JAX package's SPY_GRANGER_HOST_FALLBACK)
@@ -82,10 +82,10 @@ def connectivityanalysis(
     """
     Perform connectivity analysis of AnalogData or (complex) SpectralData.
 
-    Ported methods: ``coh`` (coherence), ``csd`` (single-trial/averaged
-    cross-spectra), ``ppc`` (pairwise phase consistency) and ``granger``
-    (nonparametric Granger-Geweke causality via Wilson factorization).
-    ``corr`` raises NotImplementedError until its slice lands.
+    Methods: ``coh`` (coherence), ``corr`` (cross-correlation),
+    ``granger`` (nonparametric Granger-Geweke causality via Wilson
+    factorization), ``csd`` (single-trial/averaged cross-spectra), ``ppc``
+    (pairwise phase consistency).
 
     Parameters
     ----------
@@ -95,15 +95,15 @@ def connectivityanalysis(
     method : {"coh", "corr", "granger", "csd", "ppc"}
         Connectivity measure (see above).
     keeptrials : bool
-        Keep single-trial estimates ("csd" only; the averaged measures are
-        defined across trials).
+        Keep single-trial estimates ("csd"/"corr" only; the averaged
+        measures are defined across trials).
     output : str
         For "coh": "abs", "pow", "complex"/"fourier", "real", "imag",
         "angle". Ignored (with a warning) by the other methods.
     foi, foilim : array_like / [fmin, fmax] / None
         Frequencies of interest (AnalogData input).
     pad : "maxperlen", "nextpow2", or float
-        Trial padding policy.
+        Trial padding policy ("corr" requires the default).
     channelcmb : [senders, receivers] or None
         Two channel lists restricting the pairwise computation (granger:
         one factorization per pair); needs SpectralData input. Results
@@ -113,9 +113,12 @@ def connectivityanalysis(
     tapsmofrq, nTaper, taper, taper_opt
         Multi-taper controls (AnalogData input).
     jackknife : bool
-        Leave-one-out error estimation for "coh" and "granger"; not ported
-        yet. Ignored with a warning by the other methods, as in the JAX
-        package.
+        Leave-one-out trial jackknife for "coh" and "granger": the
+        datasets ``jack_bias`` and ``jack_var`` of the result hold the
+        bias and variance estimates. The leave-one-out CSDs must be full
+        rank for Granger, i.e. ``(nTrials - 1) * nTapers >= nChannels``
+        (a warning says so otherwise). Ignored with a warning by the other
+        methods.
     parallel : bool or None
         Accepted for API parity and ignored: the engine runs on one device.
 
@@ -124,7 +127,8 @@ def connectivityanalysis(
     :class:`~syncopy_tpu_torch.CrossSpectralData`
         ``(time, freq, channel_i, channel_j)`` connectivity estimates with
         replayable ``cfg``; Granger convergence diagnostics land in
-        ``out.info``.
+        ``out.info``; with `jackknife`, ``out._get_extra_dataset("jack_var")``
+        and ``"jack_bias"``.
 
     Reference: connectivity_analysis.py:51.
     """
@@ -140,16 +144,11 @@ def connectivityanalysis(
 
     if method not in availableMethods:
         raise SPYValueError(legal=str(availableMethods), varname="method", actual=method)
-    if method in _NOT_PORTED:
-        raise not_ported("method '{}'".format(method), _NOT_PORTED[method])
     if not isinstance(jackknife, bool):
         raise SPYTypeError(jackknife, "jackknife", "boolean")
     if jackknife and method not in ("coh", "granger"):
         SPYWarning("Jackknife is not available for method {}".format(method))
         jackknife = False
-    if jackknife:
-        raise not_ported("jackknife", "ROADMAP Queue 1 item 8 (jackknife: "
-                         "statistics/jackknifing.py, GrangerCausality.process_batch)")
     if method != "coh" and output != defaults["output"]:
         SPYWarning("Setting `output` for method {} has no effect!".format(method))
 
@@ -163,6 +162,11 @@ def connectivityanalysis(
     send_idx = rec_idx = None
     if channelcmb is not None:
         send_idx, rec_idx = _digest_channelcmb(data, channelcmb)
+    if method == "corr" and pad != "maxperlen":
+        raise SPYValueError(
+            legal="'maxperlen', no padding needed/allowed for cross-correlations",
+            varname="pad", actual=str(pad),
+        )
     if polyremoval is not None:
         scalar_parser(polyremoval, varname="polyremoval", ntype="int_like", lims=[0, 1])
 
@@ -170,23 +174,33 @@ def connectivityanalysis(
                 "pad": pad, "channelcmb": channelcmb}
     new_cfg = get_frontend_cfg(defaults, lcls, kwargs)
 
-    from .ST_compRoutines import CrossSpectra, PPCSpectra, SpectralDyadicProduct
+    from .ST_compRoutines import CrossCovariance, CrossSpectra, PPCSpectra, SpectralDyadicProduct
 
     # -- single-trial stage setup ---------------------------------------- #
 
-    if nTrials == 1:
+    if method == "corr":
+        if not isinstance(data, AnalogData):
+            raise SPYValueError(
+                legal="AnalogData instance as input for method corr", varname="data",
+                actual=data.__class__.__name__,
+            )
+        if foi is not None:
+            SPYWarning("Parameter `foi` has no effect for method `corr`")
+        check_effective_parameters(CrossCovariance, defaults, lcls, besides=["jackknife"])
+        st_compRoutine = CrossCovariance(
+            samplerate=data.samplerate, polyremoval=polyremoval, norm=bool(keeptrials))
+    elif nTrials == 1:
         raise SPYValueError(
             legal="multi-trial input data, spectral connectivity measures "
             "critically depend on trial averaging!",
             varname="data", actual="only one trial",
         )
-    if keeptrials is not False and method in ("coh", "ppc", "granger"):
+    elif keeptrials is not False and method in ("coh", "ppc", "granger"):
         raise SPYValueError(
             legal="False, trial averaging needed for method {}!".format(method),
             varname="keeptrials", actual=str(keeptrials),
         )
-
-    if isinstance(data, AnalogData):
+    elif isinstance(data, AnalogData):
         nSamples = process_padding(pad, lenTrials, data.samplerate)
         check_effective_parameters(CrossSpectra, defaults, lcls, besides=["jackknife", "channelcmb"])
         # ppc from AnalogData: spectra and the unit-phasor reduction in one
@@ -226,7 +240,7 @@ def connectivityanalysis(
     # ppc from SpectralData runs in two passes: single-trial cross spectra,
     # then the resultant reduction of _compute_ppc
     two_pass_ppc = method == "ppc" and not isinstance(data, AnalogData)
-    st_keeptrials = bool(keeptrials or two_pass_ppc)
+    st_keeptrials = bool(keeptrials or jackknife or two_pass_ppc)
     st_compRoutine.initialize(data, st_out._stackingDim, keeptrials=st_keeptrials)
 
     if st_keeptrials:
@@ -240,16 +254,33 @@ def connectivityanalysis(
             from .AV_compRoutines import PPCReduction
 
             post = PPCReduction.make_post(st_compRoutine.numTrials)
+        elif method == "corr":
+            post = _corr_post
         else:
             post = lambda csd_avg: csd_avg  # noqa: E731
         st_compRoutine.compute(data, st_out, log_dict=log_dict, post_device_fn=post)
 
+    replicates = None
+    if jackknife:
+        from ..statistics.jackknifing import trial_avg_replicates
+        from ..statistics.summary_stats import mean
+
+        if method == "granger":
+            _jackknife_rank_note(st_compRoutine, nTrials, len(data.channel))
+        # the replicates first: then the single-trial stack can go
+        replicates = trial_avg_replicates(st_out)
+        st_out = mean(st_out, dim="trials")
+
     if method == "granger":
         out = _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict)
+    elif jackknife:  # coh, in float64 until the bias is formed
+        out = _normalize_cross_spectra(st_out, output, log_dict, double=True)
     elif two_pass_ppc:
         out = _compute_ppc(st_out)
     else:
         out = st_out
+    if jackknife:
+        _attach_jackknife(out, replicates, method, output, log_dict)
     if send_idx is not None and method == "coh":
         out = out.selectdata(channel_i=[str(c) for c in np.asarray(data.channel)[send_idx]])
         out = out.selectdata(channel_j=[str(c) for c in np.asarray(data.channel)[rec_idx]])
@@ -270,6 +301,80 @@ def _coh_post(csd_avg, output="abs"):
     from ..ops.connectivity import normalize_csd
 
     return normalize_csd(csd_avg, output)
+
+
+def _corr_post(ccov_avg):
+    """Device-side cross-correlation normalization of the trial-averaged
+    cross-covariance (reference AV_compRoutines.normalize_ccov_cF)."""
+    from ..ops.connectivity import normalize_ccov
+
+    return normalize_ccov(ccov_avg)
+
+
+def _normalize_cross_spectra(csd, output, log_dict, keeptrials=False, double=False):
+    """Coherence of averaged CSDs through NormalizeCrossSpectra: one row
+    (the direct estimate) or, with `keeptrials`, every jackknife
+    replicate; in float64 with `double`."""
+    from .AV_compRoutines import NormalizeCrossSpectra
+
+    out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+    av = NormalizeCrossSpectra(output=output, double=double)
+    av.initialize(csd, out._stackingDim, keeptrials=keeptrials)
+    if not keeptrials:
+        av.pre_check()
+    av.compute(csd, out, log_dict=log_dict)
+    return out
+
+
+def _jackknife_rank_note(st_compRoutine, nTrials, n_chan):
+    """Warn when the leave-one-out CSDs are singular by construction: each
+    trial adds rank <= nTapers, so (nTrials - 1) * nTapers < nChannels
+    leaves every replicate without a Wilson factorization."""
+    n_tap = _granger_n_tapers(st_compRoutine)
+    if (nTrials - 1) * n_tap < n_chan:
+        SPYWarning(
+            "jackknife Granger with {} trials x {} taper(s) on {} channels: leave-one-out "
+            "CSDs have rank {} < {} and are singular, so the factorization CANNOT "
+            "converge. Use more trials/tapers or fewer channels.".format(
+                nTrials, n_tap, n_chan, (nTrials - 1) * n_tap, n_chan)
+        )
+
+
+def _attach_jackknife(out, replicates, method, output, log_dict):
+    """The AV stage on the leave-one-out `replicates` (coherence, or
+    Granger with the JAX package's host float64 retry when a replicate did
+    not converge), then ``jack_bias`` and ``jack_var`` registered on `out`
+    (reference connectivity_analysis.py:434-460). Coherence runs in
+    float64 here, its direct estimate `out` included: at N = 1000 trials
+    float32 coherence leaves ~1e-4 of rounding in the bias (N - 1) (mean -
+    direct). `out` and both datasets are returned in float32 (complex64),
+    as in the JAX package."""
+    from ..statistics.jackknifing import bias_var
+    from .AV_compRoutines import GrangerCausality
+
+    if method == "coh":
+        jack_rep = _normalize_cross_spectra(replicates, output, log_dict, keeptrials=True,
+                                            double=True)
+    else:
+        av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
+        jack_rep = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
+        av.initialize(replicates, jack_rep._stackingDim)
+        av.compute(replicates, jack_rep, log_dict=log_dict)
+        if jack_rep.info.get("converged") is False and _GRANGER_HOST_FALLBACK:
+            # pairing a good point estimate with a diverged replicate's
+            # variance would attach unreliable error bars silently
+            SPYWarning(
+                "Wilson factorization did not converge on at least one jackknife "
+                "replicate (max rel. err {:.2e}) — recomputing the replicates with the "
+                "host float64 factorization.".format(
+                    float(jack_rep.info.get("max rel. err", float("nan"))))
+            )
+            jack_rep = _granger_host_replicates(replicates, av)
+    bias, variance = bias_var(out, jack_rep)
+    single = np.complex64 if np.iscomplexobj(np.asarray(out.data)) else np.float32
+    out.data = np.asarray(out.data).astype(single)
+    out._register_dataset("jack_var", np.asarray(variance.data))
+    out._register_dataset("jack_bias", np.asarray(bias.data).astype(single))
 
 
 def _digest_channelcmb(data, channelcmb):
@@ -497,25 +602,54 @@ def _granger_host_full(st_avg, av_routine):
     }, "computed Granger causality (host float64 factorization)")
 
 
+def _granger_host_replicates(replicates, av_routine):
+    """Host float64 Granger of every jackknife replicate: the retry when a
+    device factorization of the leave-one-out CSDs did not converge
+    (reference connectivity_analysis.py:759-789)."""
+    from ..ops.connectivity import granger_host, regularize_csd_host, wilson_sf_host
+
+    cfg = av_routine.cfg
+    stacked, convs, errs = [], [], []
+    for k in range(len(replicates.trials)):
+        csd = np.asarray(replicates.trials[k])[0]  # (F, N, N)
+        CSDreg, _, _ = regularize_csd_host(csd, cond_max=cfg["cond_max"], eps_max=1e-1)
+        H, Sigma, conv, err = wilson_sf_host(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+        stacked.append(granger_host(CSDreg, H, Sigma).astype(np.float32)[None])
+        convs.append(bool(conv))
+        errs.append(float(err))
+    G = np.concatenate(stacked, axis=0)
+    jack_rep = _granger_out(replicates, G, replicates.channel_i, replicates.channel_j, {
+        "converged": bool(np.all(convs)),
+        "max rel. err": float(np.max(errs)) if errs else float("nan"),
+    }, "computed {} jackknife Granger replicates (host float64)".format(len(stacked)))
+    n_rep = len(stacked)
+    trl = np.zeros((n_rep, 3))
+    trl[:, 0] = np.arange(n_rep)
+    trl[:, 1] = trl[:, 0] + 1
+    jack_rep.trialdefinition = trl
+    return jack_rep
+
+
 def _granger_pairwise(st_avg, send_idx, rec_idx, data, av_routine):
     """
     Pairwise Granger over (senders x receivers): one batched
-    regularization, Wilson factorization and Granger formula over all the
-    ``(P, F, 2, 2)`` pair CSDs, each factorized as it would be alone
-    (reference connectivity_analysis.py:792-840).
+    regularization, Wilson factorization and Granger formula over the
+    ``(nTime, P, F, 2, 2)`` pair CSDs of every window, each factorized as
+    it would be alone (reference connectivity_analysis.py:792-840, which
+    keeps only the first window of time-resolved input).
     """
     from ..engine.routine import default_device
     from ..ops.connectivity import granger, regularize_csd, wilson_sf
 
     cfg = av_routine.cfg
-    csd_avg = np.asarray(st_avg.trials[0])[0]  # (F, N, N)
+    csd_avg = np.asarray(st_avg.trials[0])  # (nTime, F, N, N)
     pairs = np.array([(s, r) for s in send_idx for r in rec_idx])  # (P, 2)
-    sub = csd_avg[:, pairs[:, :, None], pairs[:, None, :]].transpose(1, 0, 2, 3)
+    sub = csd_avg[:, :, pairs[:, :, None], pairs[:, None, :]].transpose(0, 2, 1, 3, 4)
     CSD = torch.from_numpy(np.ascontiguousarray(sub)).to(default_device(), torch.complex128)
     CSDreg, _, _ = regularize_csd(CSD, cond_max=cfg["cond_max"], eps_max=1e-1)
     H, Sigma, conv, err, _ = wilson_sf(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
-    G_pairs = granger(CSDreg, H, Sigma)[..., 0, 1].to(torch.float32).cpu().numpy()  # (P, F)
-    G = G_pairs.reshape(len(send_idx), len(rec_idx), -1).transpose(2, 0, 1)[None]
+    G_pairs = granger(CSDreg, H, Sigma)[..., 0, 1].to(torch.float32).cpu().numpy()  # (T, P, F)
+    G = G_pairs.reshape(len(csd_avg), len(send_idx), len(rec_idx), -1).transpose(0, 3, 1, 2)
     channel = np.asarray(data.channel)
     return _granger_out(st_avg, G, channel[send_idx], channel[rec_idx], {
         "converged": bool(conv.all()), "max rel. err": float(err.amax()),

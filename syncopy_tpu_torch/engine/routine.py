@@ -13,7 +13,9 @@
 #     process_metadata and write_log;
 #   - the aux-info channel: a routine's per-trial step may return
 #     (result, info), and the info is collected per trial into
-#     `aux_info` (reference :379-391, :817-861, :1009-1011).
+#     `aux_info` (reference :379-391, :817-861, :1009-1011);
+#   - auxiliary per-trial inputs (`per_trial_inputs`, reference :439,
+#     :921-999): each chunk uploads its rows with the batch.
 # Left out, as workarounds for the TPU runtime: the (re, im) complex
 # encoding, the readback relayout, dispatch retries and compile back-off,
 # f16 transfer/readback, the device trial store, device-resident outputs
@@ -84,7 +86,8 @@ class ComputationalRoutine:
 
     ``output_trial_shape(trial_shape)``
         ``(shape, numpy dtype)`` of one trial's output for an input trial
-        of `trial_shape` (the rule the JAX engine derives by tracing).
+        of `trial_shape` and dtype ``self.in_dtype`` (the rule the JAX
+        engine derives by tracing).
 
     ``process_single_trial(trial, **cfg)``
         One (selected) trial tensor to one output tensor.
@@ -92,9 +95,17 @@ class ComputationalRoutine:
     ``process_metadata(data, out)``
         Attach dimensional properties and the output trialdefinition.
 
-    Optionally ``process_batch_sum(batch, n_valid, **cfg)``: the sum over
-    the first `n_valid` trials of a padded batch, the engine's fused path
-    for ``keeptrials=False``.
+    Optionally ``process_batch_sum(batch, n_valid, *aux, **cfg)``: the sum
+    over the first `n_valid` trials of a padded batch, the engine's fused
+    path for ``keeptrials=False``.
+
+    Optionally ``per_trial_inputs(data, trial_positions)``: a tuple of
+    numpy arrays with leading axis ``len(trial_positions)``, one row per
+    trial. Each chunk uploads its rows with the batch (a broadcast view,
+    leading stride 0, uploads one row and expands it on the device), and
+    ``process_single_trial``, ``process_batch`` and ``process_batch_sum``
+    take them after the trial, batch or `n_valid`, in the order returned.
+    A padded batch's padding rows get zeros.
 
     ``process_single_trial`` may also return ``(result, info)``, an info
     dict of diagnostics. Its keys in :attr:`aux_per_trial` hold one value
@@ -125,13 +136,17 @@ class ComputationalRoutine:
     def output_trial_shape(self, trial_shape):
         raise NotImplementedError
 
-    def process_single_trial(self, trial, **cfg):
+    def process_single_trial(self, trial, *aux, **cfg):
         raise NotImplementedError
 
-    def process_batch(self, batch, **cfg):
+    def per_trial_inputs(self, data, trial_positions):
+        return ()
+
+    def process_batch(self, batch, *aux, **cfg):
         """The per-trial results of `batch` stacked, and, where the trial
         step returns ``(result, info)``, the info values stacked per key."""
-        results = [self.process_single_trial(t, **cfg) for t in batch]
+        results = [self.process_single_trial(t, *(a[i] for a in aux), **cfg)
+                   for i, t in enumerate(batch)]
         if not isinstance(results[0], tuple):
             return torch.stack(results, dim=0)
         info = {k: torch.stack([torch.as_tensor(r[1][k]) for r in results], dim=0)
@@ -179,6 +194,8 @@ class ComputationalRoutine:
         for pos, shp in enumerate(shapes):
             buckets.setdefault(shp, []).append(pos)
         self.buckets = buckets
+        # the input dtype, for output rules that depend on it
+        self.in_dtype = np.dtype(data.data.dtype)
         self.out_per_trial_shapes = {shp: self.output_trial_shape(shp) for shp in buckets}
         out_dtype = next(iter(self.out_per_trial_shapes.values()))[1]
 
@@ -261,14 +278,15 @@ class ComputationalRoutine:
             pos = np.asarray(chunk_pos)
             L = int(plan["lens"][pos[0]])
             starts = plan["starts"][pos]
-            if plan["hdf5"]:
-                # one contiguous slice per chunk when possible (per-row fancy
-                # reads are slow through h5py)
-                if starts.size > 1 and np.all(np.diff(starts) == L):
-                    arr = data.data[int(starts[0]) : int(starts[-1]) + L]
-                    batch = np.asarray(arr).reshape((len(pos), L) + data.data.shape[1:])
-                else:
-                    batch = np.stack([data.data[int(s) : int(s) + L] for s in starts], axis=0)
+            if np.all(np.diff(starts) == L):
+                # trials back to back: one contiguous slice, a view of an
+                # in-memory payload (no host copy; routines never write into
+                # their batch) and one read through h5py
+                arr = data.data[int(starts[0]) : int(starts[-1]) + L]
+                batch = np.asarray(arr).reshape((len(pos), L) + data.data.shape[1:])
+            elif plan["hdf5"]:
+                # per-row fancy reads are slow through h5py
+                batch = np.stack([data.data[int(s) : int(s) + L] for s in starts], axis=0)
             else:
                 idx = starts[:, None] + np.arange(L)
                 batch = data.data[idx]
@@ -356,15 +374,31 @@ class ComputationalRoutine:
             aux.setdefault(k, chunks[0] if len(chunks) == 1 else np.stack(chunks, axis=0))
         self.aux_info = aux
 
-    def _chunk_size(self, shp, n_positions, itemsize):
+    def _chunk_size(self, shp, n_positions, itemsize, aux_bytes=0):
         """Trials per chunk for input trials of shape `shp`, from the
-        per-trial input and output bytes (see :func:`chunk_trials`)."""
-        in_bytes = int(np.prod(shp)) * itemsize
+        per-trial input, auxiliary input and output bytes (see
+        :func:`chunk_trials`)."""
+        in_bytes = int(np.prod(shp)) * itemsize + aux_bytes
         out_shp, out_dt = self.out_per_trial_shapes[shp]
         out_bytes = int(np.prod(out_shp)) * np.dtype(out_dt).itemsize
         if not self.keeptrials and hasattr(self, "process_batch_sum"):
             out_bytes = 0  # fused reduction: per-trial outputs never exist
         return chunk_trials((in_bytes + out_bytes) * 2, n_positions, self._chunk_budget)
+
+    def _upload_aux(self, arr, c0, n_valid, n_rows):
+        """Rows ``c0 .. c0 + n_valid`` of one auxiliary input on the device,
+        zero-padded to `n_rows`. A broadcast view (leading stride 0) uploads
+        one row, expanded on the device."""
+        if arr.shape[0] and arr.strides[0] == 0:
+            row = torch.from_numpy(np.array(arr[c0 : c0 + 1])).to(self.device)
+            rows = row.expand((n_valid,) + row.shape[1:])
+        else:
+            rows = torch.from_numpy(np.array(arr[c0 : c0 + n_valid])).to(self.device)
+        if n_rows > n_valid:
+            pad = torch.zeros((n_rows - n_valid,) + rows.shape[1:], dtype=rows.dtype,
+                              device=rows.device)
+            rows = torch.cat([rows, pad], dim=0)
+        return rows
 
     def _run(self, data, out):
         sdim = self.out_stackingdim
@@ -378,7 +412,9 @@ class ComputationalRoutine:
         acc = None  # on-device sum over trials for keeptrials=False
         itemsize = np.dtype(data.data.dtype).itemsize
         for shp, positions in self.buckets.items():
-            chunk = self._chunk_size(shp, len(positions), itemsize)
+            aux_all = tuple(np.asarray(a) for a in self.per_trial_inputs(data, positions))
+            aux_bytes = sum(int(np.prod(a.shape[1:])) * a.itemsize for a in aux_all)
+            chunk = self._chunk_size(shp, len(positions), itemsize, aux_bytes)
             for c0 in range(0, len(positions), chunk):
                 chunk_pos = positions[c0 : c0 + chunk]
                 n_valid = len(chunk_pos)
@@ -389,16 +425,25 @@ class ComputationalRoutine:
                 dev_batch = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
 
                 if fused_sum:
-                    res = self.process_batch_sum(dev_batch, n_valid, **self.cfg)
+                    aux = [self._upload_aux(a, c0, n_valid, chunk) for a in aux_all]
+                    res = self.process_batch_sum(dev_batch, n_valid, *aux, **self.cfg)
                     acc = res if acc is None else acc + res
                     continue
-                res = self.process_batch(dev_batch[:n_valid], **self.cfg)
+                aux = [self._upload_aux(a, c0, n_valid, n_valid) for a in aux_all]
+                res = self.process_batch(dev_batch[:n_valid], *aux, **self.cfg)
                 if isinstance(res, tuple):
                     res, aux_info = res
                     self._accumulate_aux(aux_info, chunk_pos)
                 if not self.keeptrials:
                     res = res.sum(dim=0)
                     acc = res if acc is None else acc + res
+                    continue
+                first, last = chunk_pos[0], chunk_pos[-1]
+                if sdim == 0 and last - first == n_valid - 1:
+                    # consecutive trials stacked along axis 0: one copy from
+                    # the device into their rows of the output
+                    dst = host_out[offsets[first] : offsets[last + 1]]
+                    torch.from_numpy(dst).copy_(res.reshape(dst.shape))
                     continue
                 arr = res.cpu().numpy()
                 for i, pos in enumerate(chunk_pos):
@@ -414,6 +459,19 @@ class ComputationalRoutine:
             self.outputShape = host_out.shape
             self.dtype = host_out.dtype
         out.data = host_out
+
+    def default_trialdefinition(self, data, out):
+        """The output trialdefinition: one row per selected trial (one for
+        a trial average) over the stacked output rows, offsets 0
+        (reference :1285)."""
+        stack_lens = [oshp[self.out_stackingdim] for oshp in self._per_trial_out_shapes_ordered]
+        if not self.keeptrials:
+            stack_lens = stack_lens[:1]
+        bounds = np.concatenate([[0], np.cumsum(stack_lens)])
+        trl = np.zeros((len(stack_lens), 3))
+        trl[:, 0] = bounds[:-1]
+        trl[:, 1] = bounds[1:]
+        return trl
 
     # ------------------------------------------------------------------ #
     # provenance

@@ -1,28 +1,38 @@
 # -*- coding: utf-8 -*-
 #
 # Connectivity ops on torch tensors: the dyadic product of precomputed
-# spectra, coherence normalization, the compensated cross-spectral density
-# sum, and Granger causality (CSD regularization, Wilson's spectral matrix
-# factorization, the Granger-Geweke formula) with its host float64 oracle.
+# spectra, coherence and cross-correlation normalization, the
+# cross-covariance at non-negative lags, the compensated cross-spectral
+# density sum, and Granger causality (CSD regularization, Wilson's
+# spectral matrix factorization, the Granger-Geweke formula) with its host
+# float64 oracle.
 #
 # Port of syncopy_tpu/ops/connectivity.py (spectral_dyadic_product,
-# normalize_csd, csd_sum_compensated, csd_lam_extents, csd_reg_params,
-# apply_csd_reg, psd_topup, regularize_csd, wilson_sf, granger and the
-# numpy wilson_sf_host, regularize_csd_host, granger_host). Wilson runs the
-# JAX package's complex128 route: the card computes float64 natively, so
-# the float32 machinery the TPU needed (double-float32 DFT and Gram,
+# normalize_csd, normalize_ccov, _ccov_lags_fft, _ccov_lag_geometry,
+# _ccov_assemble, cross_covariance_trial, ccov_batch_sum,
+# csd_sum_compensated, csd_lam_extents, csd_reg_params, apply_csd_reg,
+# psd_topup, regularize_csd, wilson_sf, granger and the numpy
+# wilson_sf_host, regularize_csd_host, granger_host; wilson_sf_twosided is
+# the host iteration on the device). Wilson runs the JAX
+# package's complex128 route: the card computes float64 natively, so the
+# float32 machinery the TPU needed (double-float32 DFT and Gram,
 # compensated-residual Newton refinement, g-forcing of excluded bins, the
-# GEMM form of the plus operator) is not ported. Cross-covariance lands
-# with its slice (ROADMAP Queue 1 item 8).
+# GEMM form of the plus operator) is not ported. The cross-covariance
+# takes the FFT route on every device; the lag-batched GEMM form
+# (_ccov_lags_gemm) was shaped for the TPU's matrix unit and waits for a
+# measurement on the card.
 
 import numpy as np
 import torch
 
-from .spectral import spectral_convert
+from .spectral import detrend, spectral_convert
 
-__all__ = ["spectral_dyadic_product", "normalize_csd", "csd_sum_compensated",
+__all__ = ["spectral_dyadic_product", "normalize_csd", "normalize_ccov",
+           "cross_covariance_trial", "cross_covariance_batch", "ccov_batch_sum",
+           "csd_sum_compensated",
            "gram_sum_twosum", "csd_lam_extents", "csd_reg_params", "apply_csd_reg",
-           "psd_topup", "regularize_csd", "wilson_sf", "granger", "wilson_sf_host",
+           "psd_topup", "regularize_csd", "wilson_sf", "wilson_sf_twosided", "granger",
+           "wilson_sf_host",
            "regularize_csd_host", "granger_host"]
 
 
@@ -59,6 +69,104 @@ def normalize_csd(csd_av, output="abs"):
     root = torch.sqrt(torch.diagonal(csd_av, dim1=-2, dim2=-1).real)
     Ciijj = root[..., :, None] * root[..., None, :]
     return spectral_convert(csd_av / Ciijj, output)
+
+
+def normalize_ccov(ccov_av):
+    """Cross-correlation from a trial-averaged cross-covariance ``(nLags,
+    1, N, N)``: divided by the 0-lag auto-covariances (reference
+    AV_compRoutines.py:165-218). The denominator is formed as
+    ``sqrt(R_ii) * sqrt(R_jj)``, so data in tesla (auto-covariance ~1e-26)
+    keeps its range; the JAX package forms the product."""
+    root = torch.sqrt(torch.diagonal(ccov_av[0, 0], dim1=-2, dim2=-1))
+    return (ccov_av[:, 0] / (root[:, None] * root[None, :]))[:, None].to(torch.float32)
+
+
+def _ccov_lags_fft(x, n_lags, delta):
+    """Lags ``0 .. n_lags + delta - 1`` of ``R[..., l, i, j] = sum_m
+    x_i[m] x_j[m-l]`` for ``(..., T, C)`` real `x`, by a zero-padded FFT
+    correlation over all C^2 channel pairs (length ``2^ceil(log2(2T-1))``,
+    2048 at T = 1000)."""
+    T = x.shape[-2]
+    L = 1 << int(2 * T - 1).bit_length()
+    X = torch.fft.rfft(x, n=L, dim=-2)  # (..., Lf, C)
+    R = torch.fft.irfft(X[..., :, None] * X[..., None, :].conj(), n=L, dim=-3)
+    return R[..., : n_lags + delta, :, :]
+
+
+def _ccov_lag_geometry(T):
+    """The lag count and the upper triangle's offset for trial length T.
+
+    The reference fills the upper triangle by reversing the 'same'-mode
+    slice (ST_compRoutines.py:603-607), which lands on R_ij(l+1) for even
+    trial lengths and on R_ij(l) for odd ones; reproduced exactly."""
+    n_lags = T // 2 if T % 2 == 0 else T // 2 + 1
+    delta = 1 if T % 2 == 0 else 0
+    return n_lags, delta
+
+
+def _ccov_assemble(R, T):
+    """``(..., nLags, C, C)`` overlap-normalized cross-covariance from raw
+    lags ``R[..., l, i, j] = sum_m x_i[m] x_j[m-l]`` (at least n_lags +
+    delta of them)."""
+    n_lags, delta = _ccov_lag_geometry(T)
+    lower = R[..., :n_lags, :, :]  # R_ij(l), used for i >= j
+    upper = R[..., delta : n_lags + delta, :, :]  # R_ij(l + delta) for i < j
+    n_chan = R.shape[-1]
+    low_mask = torch.ones((n_chan, n_chan), dtype=torch.bool, device=R.device).tril()
+    CC = torch.where(low_mask, lower, upper)
+    overlap = torch.arange(T, T - n_lags, -1, device=R.device).to(torch.float32)
+    return CC / overlap[:, None, None]
+
+
+def cross_covariance_batch(batch, polyremoval=0, norm=False):
+    """
+    Single-trial cross-covariance at non-negative lags of a ``(B, T, C)``
+    batch (reference ST_compRoutines.py:465-610 runs a per-pair
+    fftconvolve host loop): one batched FFT correlation.
+
+    Returns ``(B, nLags, 1, C, C)`` float32 with ``CC[b, l, 0, i, j] =
+    sum_m x_i[m] x_j[m-l] / (T - l)``; with `norm`, divided by the two
+    channels' standard deviations (ddof 0).
+    """
+    x = detrend(batch.to(torch.float32), polyremoval, dim=1)
+    T = x.shape[1]
+    n_lags, delta = _ccov_lag_geometry(T)
+    CC = _ccov_assemble(_ccov_lags_fft(x, n_lags, delta), T)
+    if norm:
+        stds = x.std(dim=1, unbiased=False)  # (B, C)
+        CC = CC / (stds[:, None, :, None] * stds[:, None, None, :])
+    return CC[:, :, None].to(torch.float32)
+
+
+def cross_covariance_trial(trial, polyremoval=0, norm=False):
+    """:func:`cross_covariance_batch` of one ``(T, C)`` trial: ``(nLags, 1,
+    C, C)`` float32."""
+    return cross_covariance_batch(trial[None], polyremoval, norm)[0]
+
+
+def ccov_batch_sum(batch, n_valid, polyremoval=0):
+    """
+    Masked trial sum of the cross-covariance at non-negative lags, the
+    ``keeptrials=False`` route: the per-trial cross-covariance is linear
+    in the per-trial cross spectrum, so the trial sum accumulates in the
+    frequency domain as one per-frequency trial Gram, followed by one
+    inverse FFT for the whole batch (the per-trial lag tensors never
+    exist).
+
+    Returns ``(nLags, 1, C, C)`` float32, the sum of
+    :func:`cross_covariance_trial` over the first `n_valid` rows of the
+    ``(B, T, C)`` batch to FFT rounding.
+    """
+    B, T, _ = batch.shape
+    x = detrend(batch.to(torch.float32), polyremoval, dim=1)
+    # where-mask, not multiply: padding rows may hold NaN
+    valid = torch.arange(B, device=x.device) < n_valid
+    x = torch.where(valid[:, None, None], x, 0.0)
+    L = 1 << int(2 * T - 1).bit_length()
+    X = torch.fft.rfft(x, n=L, dim=1)  # (B, Lf, C)
+    S = torch.einsum("bfi,bfj->fij", X, X.conj())
+    R = torch.fft.irfft(S, n=L, dim=0)
+    return _ccov_assemble(R, T)[:, None].to(torch.float32)
 
 
 def _two_sum(a, b):
@@ -356,6 +464,74 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
 
     Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
     Hfunc = psi @ _inv_nan(psi0)[:, None]
+    return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
+            (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
+
+
+def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
+    """
+    :func:`wilson_sf_host`'s iteration on the device, batched over the
+    leading dims of one-sided ``(..., F, N, N)`` CSDs: the two-sided
+    spectrum of all 2F - 2 bins, complex FFTs, the tolerance and plateau
+    exits (no blow-up exit), each element frozen where it stops alone.
+    The same iteration as :func:`wilson_sf` with other rounding; where a
+    demeaned DC bin's rounding noise makes the one-sided form diverge it
+    can still converge, so GrangerCausality retries jackknife replicates
+    with it before any host fallback.
+
+    Returns ``(Hfunc (..., F, N, N), Sigma (..., N, N), converged (...),
+    err (...), n_iter (...))``, as :func:`wilson_sf`.
+    """
+    lead = CSD.shape[:-3]
+    F, N = CSD.shape[-3], CSD.shape[-1]
+    CSD = CSD.reshape((-1, F, N, N))
+    rdtype = _real_dtype(CSD.dtype)
+    eye = torch.eye(N, dtype=CSD.dtype, device=CSD.device)
+
+    CSD = (CSD + CSD.mH) / 2
+    scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=(-2, -1))  # (B,)
+    full = torch.cat([CSD, CSD[:, 1 : F - 1].flip(1).conj()], dim=1) / scale[:, None, None, None]
+    M = full.shape[1]
+    absfull = full.abs()
+    diag_power = torch.diagonal(full, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (B, M)
+    valid_bin = (diag_power > 1e-9 * diag_power.amax(dim=-1, keepdim=True))[..., None, None]
+
+    gamma0 = torch.fft.fft(full, dim=1)[:, 0]
+    gamma0 = ((gamma0 + gamma0.mH) / 2).real
+    psi0 = _cholesky_nan(gamma0).mT.to(CSD.dtype)  # (B, N, N)
+    psi = psi0[:, None].expand(-1, M, -1, -1).clone()
+    U = _cholesky_nan(full)
+
+    B = full.shape[0]
+    inf = torch.full((B,), float("inf"), dtype=rdtype, device=CSD.device)
+    err, prev_err = inf, inf
+    it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
+    active = torch.ones(B, dtype=torch.bool, device=CSD.device)
+    while bool(active.any()):
+        g = _inv_nan(psi) @ U
+        g = g @ g.mH + eye
+        beta = torch.fft.ifft(g, dim=1).real.to(CSD.dtype)
+        beta[:, 0] *= 0.5
+        g0 = beta[:, 0].clone()
+        beta[:, M // 2] *= 0.5
+        beta[:, M // 2 + 1 :] = 0
+        S = torch.triu(g0)
+        S = S - S.mH
+        psi_new = psi @ (torch.fft.fft(beta, dim=1) + S[:, None])
+        psi0_new = psi0 @ (g0 + S)
+        rel = (full - psi_new @ psi_new.mH).abs() / absfull
+        new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
+        step = active[:, None, None]
+        psi = torch.where(step[..., None], psi_new, psi)
+        psi0 = torch.where(step, psi0_new, psi0)
+        prev_err = torch.where(active, err, prev_err)
+        err = torch.where(active, new_err, err)
+        it = it + active
+        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
+        active = active & (err >= rtol) & (it < nIter) & ~plateau & ~torch.isnan(err)
+
+    Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
+    Hfunc = (psi @ _inv_nan(psi0)[:, None])[:, :F]
     return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
             (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
 

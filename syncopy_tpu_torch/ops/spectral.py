@@ -34,21 +34,24 @@ def detrend(x, polyremoval, dim=-2):
 
 def spectral_convert(ftr, output):
     """Map complex Fourier coefficients to the requested output
-    (reference const_def.py:12-37)."""
+    (reference const_def.py:12-37): single precision, or double for
+    complex128 input."""
+    double = ftr.dtype == torch.complex128
+    real, cplx = (torch.float64, torch.complex128) if double else (torch.float32, torch.complex64)
     if output in ("fourier", "complex"):
-        return ftr.to(torch.complex64)
+        return ftr.to(cplx)
     if output == "pow":
-        return (ftr * ftr.conj()).real.to(torch.float32)
+        return (ftr * ftr.conj()).real.to(real)
     if output == "abs":
-        return ftr.abs().to(torch.float32)
+        return ftr.abs().to(real)
     if output == "real":
-        return ftr.real.to(torch.float32)
+        return ftr.real.to(real)
     if output == "imag":
-        return ftr.imag.to(torch.float32)
+        return ftr.imag.to(real)
     if output == "angle":
-        return ftr.angle().to(torch.float32)
+        return ftr.angle().to(real)
     if output == "absreal":
-        return ftr.real.abs().to(torch.float32)
+        return ftr.real.abs().to(real)
     if output == "absimag":
-        return ftr.imag.abs().to(torch.float32)
+        return ftr.imag.abs().to(real)
     raise ValueError("unknown output '{}'".format(output))

@@ -3,8 +3,8 @@
 # against syncopy_tpu on the CPU: the same numpy arrays build both
 # packages' AnalogData (syncopy_tpu_torch.from_arrays), and the coherence
 # must agree to < 1e-5 (the bar of test_connectivity.py:1366-1406) with
-# equal metadata. Also: the port imports no jax, and the kernel's launch
-# counter stays 0 on the CPU.
+# equal metadata. Also: the port and its statistics import no jax, and the
+# kernel's launch counter stays 0 on the CPU.
 
 import os
 import subprocess
@@ -195,18 +195,6 @@ def test_launch_counter_stays_zero_on_cpu():
     assert csd_kernels.csd_accumulate_tiled.launches == 0
 
 
-#: what each method still leaves unported: corr as a whole, granger its
-#: jackknife
-_UNPORTED_CALLS = {"corr": {}, "granger": {"jackknife": True}}
-
-
-@pytest.mark.parametrize("method", ["granger", "corr"])
-def test_other_methods_not_ported_yet(method):
-    pdata, _ = _both([200] * 4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue"):
-        spt.connectivityanalysis(pdata, method=method, **_UNPORTED_CALLS[method])
-
-
 def _coh(data, trl, package):
     if package is spt:
         adata = spt.from_arrays(data, trl, FS)
@@ -258,8 +246,14 @@ def test_from_arrays_builds_the_same_object():
     assert pdata.samplerate == jdata.samplerate
 
 
-def test_import_pulls_in_no_jax():
-    code = ("import sys, syncopy_tpu_torch; "
+@pytest.mark.parametrize("module", [
+    "syncopy_tpu_torch",
+    "syncopy_tpu_torch.statistics",
+    "syncopy_tpu_torch.statistics.jackknifing",
+    "syncopy_tpu_torch.connectivity.AV_compRoutines",
+])
+def test_import_pulls_in_no_jax(module):
+    code = ("import sys, " + module + "; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'syncopy_tpu.'))"
             " or m == 'syncopy_tpu']; "
             "assert not bad, bad")

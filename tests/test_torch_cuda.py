@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
 # Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
 # PPC resultant) against complex128 oracles and their plain versions, and
-# the coherence, PPC and Granger main paths on the card against the same paths on
-# the CPU. They skip where no CUDA device is present (the kernels have no
+# the coherence, PPC, Granger, jackknife, corr and trial-statistics paths
+# on the card against the same paths on the CPU. They skip where no CUDA device is present (the kernels have no
 # CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -455,3 +455,78 @@ def test_singular_inputs_give_nan_on_card(cuda_device):
     lo, hi, _ = pc.csd_lam_extents(C[None])
     assert bool(torch.isfinite(lo).all()) and bool((lo <= hi).all())
     assert bool((lo[0, 4] < 0))  # the negated bin's smallest eigenvalue
+
+
+def _equal_analog(seed, n_trials=9, n_samples=400, n_chan=6):
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(n_trials * n_samples, n_chan)).astype(np.float32)
+    trl = np.array([[k * n_samples, (k + 1) * n_samples, 0] for k in range(n_trials)])
+    return spt.from_arrays(data, trl, 1000.0)
+
+
+def _on_both_devices(call):
+    """`call()` on the card, then on the CPU; the card stays the setting."""
+    on_card = call()
+    spt.set_device("cpu")
+    try:
+        on_cpu = call()
+    finally:
+        spt.set_device("cuda:0")
+    return on_card, on_cpu
+
+
+@pytest.mark.cuda
+def test_coh_jackknife_on_card_matches_cpu(cuda_device):
+    """Coherence with jackknife error bars: the same call on the card and
+    on the CPU, the coherence and both datasets within 1e-5, no kernel
+    launched (the single-trial CSDs are one batched matmul a chunk)."""
+    adata = _equal_analog(31)
+    launches = [ck.csd_accumulate_tiled.launches, pk.ppc_accumulate_tiled.launches]
+    out, ref = _on_both_devices(lambda: spt.connectivityanalysis(
+        adata, method="coh", tapsmofrq=4, jackknife=True))
+    assert [ck.csd_accumulate_tiled.launches, pk.ppc_accumulate_tiled.launches] == [
+        launches[0], launches[1]]
+    for get in (lambda o: o.data, lambda o: o._get_extra_dataset("jack_var"),
+                lambda o: o._get_extra_dataset("jack_bias")):
+        got, want = np.asarray(get(out)), np.asarray(get(ref))
+        assert got.dtype == want.dtype == np.float32 and np.isfinite(got).all()
+        assert np.abs(got - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_granger_jackknife_on_card_matches_cpu(cuda_device):
+    """Granger with jackknife error bars from the same spectra on the card
+    and on the CPU: G and the datasets within 1e-5, every replicate on the
+    device route."""
+    spec, trl = _ar2_spectra(3, 40, 200, seed=25)
+    freq = np.fft.rfftfreq(200, 1 / 200.0)
+    sdata = spt.SpectralData(data=spec, samplerate=200.0, freq=freq, trialdefinition=trl)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, ref = _on_both_devices(lambda: spt.connectivityanalysis(
+            sdata, method="granger", jackknife=True))
+    assert not [w for w in caught if "host float64" in str(w.message)]
+    assert out.info["converged"] and ref.info["converged"]
+    for get in (lambda o: o.data, lambda o: o._get_extra_dataset("jack_var"),
+                lambda o: o._get_extra_dataset("jack_bias")):
+        got, want = np.asarray(get(out)), np.asarray(get(ref))
+        assert np.isfinite(got).all() and np.abs(got - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keeptrials", [False, True])
+def test_corr_on_card_matches_cpu(cuda_device, keeptrials):
+    adata = _equal_analog(26, n_trials=12, n_samples=64, n_chan=5)
+    out, ref = _on_both_devices(lambda: spt.connectivityanalysis(
+        adata, method="corr", keeptrials=keeptrials))
+    got, want = np.asarray(out.data), np.asarray(ref.data)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_trial_statistics_on_card_match_cpu(cuda_device):
+    adata = _equal_analog(27)
+    for op in ("mean", "var", "std"):
+        out, ref = _on_both_devices(lambda: getattr(spt, op)(adata, dim="trials"))
+        assert np.abs(np.asarray(out.data) - np.asarray(ref.data)).max() < 1e-6
