@@ -66,9 +66,28 @@ Phases, each of which raises on failure (non-zero exit):
 11. corr: connectivityanalysis(method="corr") on phase 6's data at 64
    channels, checked against a float64 FFT cross-correlation on the card
    to 1e-5; then at 128 channels (BASELINE config #3's width), timed.
-Phases 9 to 11 each print their warm wall, peak device memory and peak
+12. mtmfft: freqanalysis(method="mtmfft", tapsmofrq=2) on phase 6's data
+   (BASELINE config #1 at north-star width): output "pow" with trials
+   kept (128 MB out) and averaged, "fourier" with tapers kept (770 MB
+   out), each held to a float64 demean, taper and rfft on the card; the
+   fourier spectra through connectivityanalysis(method="coh") against
+   phase 6's coherence to 1e-5; output "fooof" on the trial average (the
+   host fit, timed, its info keys);
+13. mtmconvol (500 trials, hann windows of 250 samples at 16 explicit
+   times) and welch (1000 trials, 256-sample windows, half overlap), the
+   JAX package's mtmconvol_device and welch_device rows, each held to a
+   float64 STFT on the card;
+14. wavelet (Morlet(6) power at every sample, 30 frequencies from 10 to
+   150 Hz, 512 trials) and superlet (15 frequencies from 10 to 100 Hz,
+   orders 1 to 5, c_1 = 3, multiplicative, 64 trials), the
+   wavelet_tfr_device and superlet_device rows, held on their first 16
+   trials to float64 linear convolutions at the exact length (the
+   superlet's geometric mean over orders in float64).
+Phases 9 to 14 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 there: these paths
-run no CUDA kernel of the port.
+run no CUDA kernel of the port. Phases 12 to 14 also print trials/s, the
+bytes read back with their copy time, and a stage split (gather, pad and
+upload; compute; readback) replayed with a synchronize after each step.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
@@ -124,6 +143,12 @@ JACK_COH_TRIALS = 500
 JACK_GRANGER_TRIALS, JACK_GRANGER_CHANNELS = 200, 16
 #: bar for the cross-correlation against a float64 FFT cross-correlation
 CORR_ABS_TOL = 1e-5
+#: bar for freqanalysis outputs against float64 on the card, relative to
+#: the oracle's maximum
+SPEC_REL_TOL = 1e-5
+#: trials of phase 13's mtmconvol and phase 14's wavelet and superlet (the
+#: JAX package's device_bench rows), and of their float64 oracles
+STFT_TRIALS, WAVELET_TRIALS, SUPERLET_TRIALS, TF_ORACLE_TRIALS = 500, 512, 64, 16
 
 N_TRIALS, N_SAMPLES, N_CHANNELS, FS = 1000, 1000, 64, 1000.0
 
@@ -754,7 +779,7 @@ def zero_launches():
 
 def read_launches(name):
     """The three kernels' launches since zero_launches(): none may have
-    run on the paths of phases 9 to 11."""
+    run on the paths of phases 9 to 14."""
     from syncopy_tpu_torch.ops import csd_kernels as ck
     from syncopy_tpu_torch.ops import ppc_kernels as pk
 
@@ -1044,6 +1069,353 @@ def corr_phase(spt):
     return summary
 
 
+def captured_call(name, fn):
+    """:func:`measured_call` of `fn`, and the compute routine its frontend
+    ran (the first one initialized), for the stage split."""
+    from syncopy_tpu_torch.engine.routine import ComputationalRoutine
+
+    routines, initialize = [], ComputationalRoutine.initialize
+
+    def keep(self, *args, **kwargs):
+        routines.append(self)
+        return initialize(self, *args, **kwargs)
+
+    ComputationalRoutine.initialize = keep
+    try:
+        res, stats = measured_call(name, fn)
+    finally:
+        ComputationalRoutine.initialize = initialize
+    return res, stats, routines[0]
+
+
+def engine_stages(cr, adata):
+    """The engine's steps for the routine `cr` of a finished call replayed
+    chunk by chunk, with a synchronize after each: the host gather, pad and
+    upload (with the auxiliary inputs), the compute (the routine's
+    process_batch, and the trial sum where trials are averaged), and the
+    readback to the host. Returns (ms by stage, bytes read back)."""
+    import torch
+
+    ms, nbytes, acc = {}, 0, None
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms[key] = ms.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return res
+
+    itemsize = np.dtype(adata.data.dtype).itemsize
+    for shp, positions in cr.buckets.items():
+        aux_all = tuple(np.asarray(a) for a in cr.per_trial_inputs(adata, positions))
+        aux_bytes = sum(int(np.prod(a.shape[1:])) * a.itemsize for a in aux_all)
+        chunk = cr._chunk_size(shp, len(positions), itemsize, aux_bytes)
+        for c0 in range(0, len(positions), chunk):
+            pos = positions[c0 : c0 + chunk]
+
+            def upload():
+                batch = cr._gather_batch(adata, pos)
+                pad = np.zeros((chunk - len(pos),) + batch.shape[1:], batch.dtype)
+                dev = torch.from_numpy(np.ascontiguousarray(
+                    np.concatenate([batch, pad], axis=0))).to("cuda")
+                return dev[: len(pos)], [cr._upload_aux(a, c0, len(pos), len(pos))
+                                         for a in aux_all]
+
+            dev, aux = timed("gather, pad and upload", upload)
+            res = timed("compute", lambda: cr.process_batch(dev, *aux, **cr.cfg))
+            if cr.keeptrials:
+                nbytes += res.numel() * res.element_size()
+                timed("readback", lambda: res.cpu())
+            else:
+                part = timed("compute", lambda: res.sum(dim=0))
+                acc = part if acc is None else acc + part
+            del dev, res
+    if acc is not None:
+        nbytes += acc.numel() * acc.element_size()
+        timed("readback", lambda: (acc / cr.numTrials).cpu())
+    return ms, nbytes
+
+
+def spectral_case(name, adata, n_trials, call, check, reps=3):
+    """One freqanalysis configuration on the card: a first call with the
+    launch counters at 0 and the peak memory read, `check(out)` (which
+    returns the error against the float64 oracle and raises past its
+    bar), the warm wall over `reps` calls and the stage split."""
+    import torch
+
+    out, (first, dev_gb, host_gb), cr = captured_call(name, call)
+    err = check(out)
+    del out
+    wall = warm_wall(name, call, reps)
+    print("{}: {:.1f} trials/s".format(name, n_trials / wall))
+    ms, nbytes = engine_stages(cr, adata)
+    print("{} stages (ms, synchronized): {}; {:.3f} GB read back in {:.3f} ms ({:.2f} GB/s)".format(
+        name, ", ".join("{} {:.3f}".format(k, v) for k, v in ms.items()), nbytes / 1e9,
+        ms["readback"], nbytes / 1e6 / ms["readback"]))
+    torch.cuda.empty_cache()
+    return {"first": first, "wall": wall, "trials_per_s": n_trials / wall, "err": err,
+            "peak_device_gb": dev_gb, "peak_host_gb": host_gb, "stages": ms,
+            "readback_gb": nbytes / 1e9}
+
+
+def held(name, err, tol=SPEC_REL_TOL):
+    """Print a relative error against float64 and raise past `tol`."""
+    print("{}: max err vs float64 {:.3e} of the oracle's maximum".format(name, err))
+    if not err < tol:
+        raise AssertionError("{} err {:.3e} >= {}".format(name, err, tol))
+    return err
+
+
+def chunked_rel_err(pairs):
+    """max|got - want| / max|want| over (got, want) chunk pairs, float64."""
+    err = scale = 0.0
+    for got, want in pairs:
+        err = max(err, float((got.to(want.dtype) - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    return err / scale
+
+
+def mtmfft_f64(x, tapers):
+    """Float64 demean, taper bank and rfft of a (B, T, C) batch on the
+    card: (B, K, F, C) complex128."""
+    import torch
+
+    x = x.double()
+    x = x - x.mean(dim=1, keepdim=True)
+    return torch.fft.rfft(tapers[None, :, :, None] * x[:, None], dim=2)
+
+
+def mtmfft_phase(spt, data, trl, taper, taper_opt, coh_direct):
+    """Phase 12: mtmfft at the north-star shape (BASELINE config #1), each
+    output held to a float64 rfft on the card; the fourier spectra through
+    connectivityanalysis against phase 6's coherence; FOOOF on the trial
+    average."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    adata = spt.from_arrays(data, trl, FS)
+    x_all = torch.from_numpy(data).to("cuda").reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+    tapers = torch.from_numpy(
+        make_tapers(taper, taper_opt, N_SAMPLES, N_SAMPLES, FS)).to("cuda", torch.float64)
+    group = 100
+
+    def spectra(b0):
+        return mtmfft_f64(x_all[b0 : b0 + group], tapers)
+
+    def check_pow(out):
+        got = torch.from_numpy(np.asarray(out.data)).to("cuda")  # (trials, 1, F, C)
+        return held("mtmfft pow", chunked_rel_err(
+            (got[b0 : b0 + group, 0], (spectra(b0).abs() ** 2).mean(dim=1))
+            for b0 in range(0, N_TRIALS, group)))
+
+    def check_avg(out):
+        want = sum((spectra(b0).abs() ** 2).mean(dim=1).sum(dim=0)
+                   for b0 in range(0, N_TRIALS, group)) / N_TRIALS
+        got = torch.from_numpy(np.asarray(out.data)[0, 0]).to("cuda")
+        return held("mtmfft pow, trial average", chunked_rel_err([(got, want)]))
+
+    kept = {}
+
+    def check_fourier(out):
+        kept["spec"] = out
+        got = np.asarray(out.data)
+        return held("mtmfft fourier", chunked_rel_err(
+            (torch.from_numpy(got[b0 : b0 + group]).to("cuda"), spectra(b0))
+            for b0 in range(0, N_TRIALS, group)))
+
+    kw = dict(method="mtmfft", tapsmofrq=2)
+    summary = {
+        "pow": spectral_case("mtmfft pow", adata, N_TRIALS, lambda: spt.freqanalysis(
+            adata, output="pow", **kw), check_pow),
+        "pow_avg": spectral_case("mtmfft pow, keeptrials=False", adata, N_TRIALS,
+                                 lambda: spt.freqanalysis(adata, keeptrials=False, **kw),
+                                 check_avg),
+        "fourier": spectral_case("mtmfft fourier", adata, N_TRIALS, lambda: spt.freqanalysis(
+            adata, output="fourier", keeptapers=True, **kw), check_fourier, reps=2),
+    }
+    spec = kept.pop("spec")
+    coh, _ = measured_call("coh of the port's fourier spectra", lambda: (
+        spt.connectivityanalysis(spec, method="coh")))
+    chain_err = float(np.abs(np.asarray(coh.data)[0] - coh_direct).max())
+    print("coh of the port's fourier spectra against phase 6's coherence of the same data: max "
+          "abs err {:.3e}".format(chain_err))
+    if not chain_err < COH_ABS_TOL:
+        raise AssertionError("chained coherence err {:.3e} >= {}".format(chain_err, COH_ABS_TOL))
+    summary["chain_err"] = chain_err
+    del spec, coh, x_all
+    torch.cuda.empty_cache()
+
+    fooof, (wall, _, _) = measured_call("mtmfft fooof", lambda: spt.freqanalysis(
+        adata, output="fooof", keeptrials=False, foilim=[1, 100], **kw))
+    peaks = fooof.info["fooof_n_peaks"]
+    print("mtmfft fooof on the trial average (host fit, {} channels x {} bins): {:.3f} s; info "
+          "keys {}; peaks per channel {}-{}".format(
+              N_CHANNELS, len(fooof.freq), wall, sorted(fooof.info), min(peaks), max(peaks)))
+    if not np.isfinite(np.asarray(fooof.data)).all() or len(peaks) != N_CHANNELS:
+        raise AssertionError("fooof result not finite or not one fit per channel")
+    summary["fooof_wall"] = wall
+    return summary
+
+
+def stft_pow_f64(x, starts, nperseg, taper):
+    """Float64 STFT power of a (B, T, C) batch on the card: window k holds
+    trial samples [starts[k], starts[k] + nperseg), zero past both edges,
+    demeaned, tapered, rfft; (B, nWindows, F, C)."""
+    import torch
+
+    xp = torch.nn.functional.pad(x.double().transpose(1, 2), (nperseg, nperseg))
+    idx = torch.as_tensor(starts, device=x.device)[:, None] + nperseg + torch.arange(
+        nperseg, device=x.device)
+    frames = xp[:, :, idx]  # (B, C, W, nperseg)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    return (torch.fft.rfft(frames * taper, dim=-1).abs() ** 2).permute(0, 2, 3, 1)
+
+
+def stft_phase(spt, data, trl):
+    """Phase 13: mtmconvol on 500 trials at 16 explicit windows and welch
+    on 1000 trials (BASELINE config #2; the JAX package's
+    mtmconvol_device and welch_device rows), each held to a float64 STFT
+    on the card."""
+    import torch
+
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    summary, group = {}, 100
+    for name, n_trials, kw in (
+            ("mtmconvol", STFT_TRIALS, dict(method="mtmconvol", t_ftimwin=0.25,
+                                            toi=np.arange(0.125, 0.876, 0.05))),
+            ("welch", N_TRIALS, dict(method="welch", t_ftimwin=0.256, toi=0.5))):
+        adata = spt.from_arrays(data[: n_trials * N_SAMPLES], trl[:n_trials], FS)
+        nperseg = int(kw["t_ftimwin"] * FS)
+        if name == "mtmconvol":
+            centres = np.round(kw["toi"] * FS).astype(int)
+        else:
+            hop = nperseg - min(nperseg - 1, int(kw["toi"] * nperseg))
+            centres = np.arange(0, N_SAMPLES, hop)
+        starts = centres - nperseg // 2
+        x_all = torch.from_numpy(data[: n_trials * N_SAMPLES]).to("cuda").reshape(
+            n_trials, N_SAMPLES, N_CHANNELS)
+        taper = torch.from_numpy(make_tapers("hann", None, nperseg, nperseg, FS)[0]).to(
+            "cuda", torch.float64)
+
+        def check(out, name=name, n_trials=n_trials):
+            got = torch.from_numpy(np.asarray(out.data)).to("cuda")
+            got = got[:, 0].reshape((n_trials, -1) + got.shape[2:])  # (trials, W, F, C)
+            pairs = []
+            for b0 in range(0, n_trials, group):
+                want = stft_pow_f64(x_all[b0 : b0 + group], starts, nperseg, taper)
+                if name == "welch":
+                    want = want.mean(dim=1, keepdim=True)
+                pairs.append((got[b0 : b0 + group], want))
+            return held(name, chunked_rel_err(pairs))
+
+        summary[name] = spectral_case(name, adata, n_trials, lambda: spt.freqanalysis(
+            adata, **kw), check)
+        del x_all
+        torch.cuda.empty_cache()
+    return summary
+
+
+def wavelet_f64(x, kernels):
+    """Float64 'same'-mode linear convolution of a (B, T, C) batch with
+    each sampled kernel, at the exact length T + K - 1 (no bucketing, no
+    power-of-two padding): (len(kernels), B, T, C) complex128."""
+    import torch
+
+    x = x.double()
+    x = x - x.mean(dim=1, keepdim=True)
+    T, out = x.shape[1], []
+    for kern in kernels:
+        K = kern.size
+        n = T + K - 1
+        k = torch.from_numpy(kern).to(x.device)
+        y = torch.fft.ifft(torch.fft.fft(x, n=n, dim=1) * torch.fft.fft(k, n=n)[None, :, None],
+                           dim=1)
+        out.append(y[:, (K - 1) // 2 : (K - 1) // 2 + T])
+    return torch.stack(out)
+
+
+def sampled(time_fn, support):
+    """A wavelet sampled at dt on its support of `support` samples,
+    centred (the transform's definition, reference transform.py:88-108)."""
+    t = np.arange((-support + 1) / 2.0, (support + 1) / 2.0) / FS
+    return time_fn(t)
+
+
+def morlet_kernels(foi, w0=6.0):
+    """Morlet(w0) kernels of the scales of `foi`, cwt normalization."""
+    dt, kernels = 1 / FS, []
+    for f in foi:
+        s = (1.0 / f) * (np.sqrt(w0 * w0 + 2) + w0) / (4 * np.pi)
+
+        def morlet(t, s=s):
+            x = t / s
+            return (dt ** 0.5 / (s * 8 * np.pi)) * (np.exp(1j * w0 * x) - np.exp(-0.5 * w0 ** 2)) \
+                * np.exp(-0.5 * x ** 2) * np.pi ** (-0.25)
+
+        kernels.append(sampled(morlet, 10 * s / dt))
+    return kernels
+
+
+def superlet_kernels(f, cycles):
+    """MorletSL kernel (5 standard deviations, `cycles` cycles) of the
+    scale of `f`, the superlet normalization."""
+    dt, s, k_sd = 1 / FS, 1 / (2 * np.pi * f), 5
+
+    def morlet_sl(t):
+        ts = t / s
+        b_c = k_sd / (s * cycles * (2 * np.pi) ** 1.5)
+        return (dt ** 0.5 / (4 * np.pi)) * b_c * np.exp(1j * ts) \
+            * np.exp(-0.5 * (k_sd * ts / (2 * np.pi * cycles)) ** 2)
+
+    return sampled(morlet_sl, 10 * s * cycles / dt)
+
+
+def wavelet_phase(spt, data, trl):
+    """Phase 14: Morlet(6) power at every sample on 512 trials and the
+    multiplicative superlet on 64 (BASELINE config #2; the JAX package's
+    wavelet_tfr_device and superlet_device rows), each held on its first
+    16 trials to float64 linear convolutions on the card (the superlet's
+    geometric mean over orders in float64)."""
+    import torch
+
+    summary, n_check = {}, TF_ORACLE_TRIALS
+    x = torch.from_numpy(data[: n_check * N_SAMPLES]).to("cuda").reshape(
+        n_check, N_SAMPLES, N_CHANNELS)
+
+    def head(out):
+        """The first trials' power, (trials, S, T, C) on the card."""
+        got = np.asarray(out.data)[: n_check * N_SAMPLES, 0]
+        return torch.from_numpy(got).to("cuda").reshape(
+            n_check, N_SAMPLES, -1, N_CHANNELS).permute(0, 2, 1, 3)
+
+    foi = np.linspace(10, 150, 30)
+    adata = spt.from_arrays(data[: WAVELET_TRIALS * N_SAMPLES], trl[:WAVELET_TRIALS], FS)
+    want = wavelet_f64(x, morlet_kernels(foi)).abs().permute(1, 0, 2, 3) ** 2
+    summary["wavelet"] = spectral_case(
+        "wavelet", adata, WAVELET_TRIALS, lambda: spt.freqanalysis(
+            adata, method="wavelet", foi=foi, toi="all", output="pow"),
+        lambda out: held("wavelet", chunked_rel_err([(head(out), want)])), reps=1)
+    del want, adata
+    torch.cuda.empty_cache()
+
+    foi = np.linspace(10, 100, 15)
+    orders = range(1, 6)
+    adata = spt.from_arrays(data[: SUPERLET_TRIALS * N_SAMPLES], trl[:SUPERLET_TRIALS], FS)
+    logs = sum(torch.log(wavelet_f64(x, [superlet_kernels(f, 3 * o) for f in foi]).abs())
+               for o in orders) / len(orders)
+    want = torch.exp(2 * logs).permute(1, 0, 2, 3)  # the geometric mean, squared
+    summary["superlet"] = spectral_case(
+        "superlet", adata, SUPERLET_TRIALS, lambda: spt.freqanalysis(
+            adata, method="superlet", foi=foi, order_max=5, c_1=3, adaptive=False,
+            output="pow"),
+        lambda out: held("superlet", chunked_rel_err([(head(out), want)])), reps=2)
+    del want, logs, x, adata
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     import torch
 
@@ -1300,6 +1672,15 @@ def main():
 
     # -- 11. corr ------------------------------------------------------------ #
     corr_phase(spt)
+
+    # -- 12 to 14. freqanalysis ---------------------------------------------- #
+    t0 = time.perf_counter()
+    data, trl = north_star_data()
+    mtmfft_phase(spt, data, trl, taper, taper_opt, np.asarray(coh.data)[0])
+    stft_phase(spt, data, trl)
+    wavelet_phase(spt, data, trl)
+    del data
+    print("phases 12 to 14: {:.1f} s".format(time.perf_counter() - t0))
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",

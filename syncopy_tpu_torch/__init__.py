@@ -18,6 +18,7 @@ torch.backends.cudnn.allow_tf32 = False
 from .datatype import AnalogData, CrossSpectralData, SpectralData, Selector  # noqa: E402
 from .connectivity import connectivityanalysis  # noqa: E402
 from .engine.routine import set_device  # noqa: E402
+from .specest import freqanalysis  # noqa: E402
 from .statistics import itc, mean, median, std, var  # noqa: E402
 
 __all__ = [
@@ -26,6 +27,7 @@ __all__ = [
     "SpectralData",
     "Selector",
     "connectivityanalysis",
+    "freqanalysis",
     "from_arrays",
     "itc",
     "mean",

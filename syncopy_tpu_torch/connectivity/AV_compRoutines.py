@@ -13,7 +13,7 @@
 import numpy as np
 import torch
 
-from ..engine.routine import ComputationalRoutine
+from ..engine.routine import ComputationalRoutine, take_labels
 from ..ops.connectivity import (
     apply_csd_reg,
     csd_reg_params,
@@ -26,7 +26,6 @@ from ..ops.connectivity import (
     wilson_sf_twosided,
 )
 from ..shared.errors import SPYValueError
-from .ST_compRoutines import _take_labels
 
 __all__ = ["PPCReduction", "NormalizeCrossSpectra", "NormalizeCrossCov", "GrangerCausality"]
 
@@ -108,9 +107,9 @@ class _AVRoutine(ComputationalRoutine):
         out.trialdefinition = np.array(self.selector.trialdefinition)
         out.samplerate = data.samplerate
         sel = self.selector
-        out.channel_i = _take_labels(data.channel_i, getattr(sel, "channel_i", None))
-        out.channel_j = _take_labels(data.channel_j, getattr(sel, "channel_j", None))
-        out.freq = _take_labels(data.freq, getattr(sel, "freq", None))
+        out.channel_i = take_labels(data.channel_i, getattr(sel, "channel_i", None))
+        out.channel_j = take_labels(data.channel_j, getattr(sel, "channel_j", None))
+        out.freq = take_labels(data.freq, getattr(sel, "freq", None))
 
 
 class NormalizeCrossSpectra(_AVRoutine):

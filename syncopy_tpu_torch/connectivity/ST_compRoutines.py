@@ -8,7 +8,7 @@
 import numpy as np
 import torch
 
-from ..engine.routine import ComputationalRoutine
+from ..engine.routine import ComputationalRoutine, take_labels
 from ..ops.connectivity import (
     _ccov_lag_geometry,
     ccov_batch_sum,
@@ -18,19 +18,10 @@ from ..ops.connectivity import (
 )
 from ..ops.csd_kernels import csd_accumulate_tiled
 from ..ops.ppc_kernels import ppc_accumulate_tiled
-from ..ops.spectral import detrend
+from ..ops.spectral import taper_segments
 from ..ops.windows import make_tapers
 
 __all__ = ["CrossSpectra", "PPCSpectra", "SpectralDyadicProduct", "CrossCovariance"]
-
-
-def _take_labels(labels, indexer):
-    labels = np.asarray(labels)
-    if indexer is None:
-        return labels
-    if isinstance(indexer, slice):
-        return labels[indexer]
-    return labels[np.asarray(indexer, dtype=int)]
 
 
 class _CrossRoutine(ComputationalRoutine):
@@ -42,7 +33,7 @@ class _CrossRoutine(ComputationalRoutine):
         out.trialdefinition = self.default_trialdefinition(data, out)
         out.samplerate = data.samplerate
         sel = self.selector
-        chan = _take_labels(data.channel, getattr(sel, "channel", None))
+        chan = take_labels(data.channel, getattr(sel, "channel", None))
         out.channel_i = chan
         out.channel_j = chan
         if self.cfg.get("foi") is not None:
@@ -87,13 +78,9 @@ class CrossSpectra(_CrossRoutine):
         """(B, K, T, C) detrended+tapered trial batch in `dtype` and the
         taper count."""
         nfft = cfg["nSamples"] or batch.shape[1]
-        x = detrend(batch.to(dtype), cfg["polyremoval"], dim=1)
         tapers = torch.from_numpy(
-            make_tapers(cfg["taper"], cfg["taper_opt"], batch.shape[1], nfft, cfg["samplerate"])
-        ).to(x.device, dtype)
-        tapered = tapers[None, :, :, None] * x[:, None, :, :]  # (B, K, T, C)
-        if cfg["demean_taper"]:
-            tapered = tapered - tapered.mean(dim=2, keepdim=True)
+            make_tapers(cfg["taper"], cfg["taper_opt"], batch.shape[1], nfft, cfg["samplerate"]))
+        tapered = taper_segments(batch, tapers, cfg["polyremoval"], cfg["demean_taper"], dtype)
         return tapered, tapers.shape[0], nfft
 
     @staticmethod
@@ -228,14 +215,14 @@ class SpectralDyadicProduct(_CrossRoutine):
         out.trialdefinition = self.default_trialdefinition(data, out)
         out.samplerate = data.samplerate
         sel = self.selector
-        chan = _take_labels(data.channel, getattr(sel, "channel", None))
+        chan = take_labels(data.channel, getattr(sel, "channel", None))
         if self.cfg["send_idx"] is not None:
             out.channel_i = np.asarray(data.channel)[self.cfg["send_idx"]]
             out.channel_j = np.asarray(data.channel)[self.cfg["rec_idx"]]
         else:
             out.channel_i = chan
             out.channel_j = chan
-        out.freq = _take_labels(np.asarray(data.freq), getattr(sel, "freq", None))
+        out.freq = take_labels(np.asarray(data.freq), getattr(sel, "freq", None))
 
 
 class CrossCovariance(_CrossRoutine):
@@ -275,6 +262,6 @@ class CrossCovariance(_CrossRoutine):
     def process_metadata(self, data, out):
         out.trialdefinition = self.default_trialdefinition(data, out)
         out.samplerate = data.samplerate
-        chan = _take_labels(data.channel, getattr(self.selector, "channel", None))
+        chan = take_labels(data.channel, getattr(self.selector, "channel", None))
         out.channel_i = chan
         out.channel_j = chan

@@ -214,7 +214,8 @@ def connectivityanalysis(
         # dtype check via the payload's dtype attribute: no element access
         if not np.issubdtype(np.dtype(data.data.dtype), np.complexfloating):
             raise SPYValueError(
-                legal="complex valued spectra, set `output='fourier'` in spy.freqanalysis!",
+                legal="complex valued spectra, set `output='fourier'` in "
+                "syncopy_tpu_torch.freqanalysis!",
                 varname="data", actual="real valued spectral data",
             )
         if method == "granger":

@@ -78,6 +78,16 @@ def chunk_trials(per_trial_bytes, n_trials, budget=None):
     return min(chunk, 1 << (max(n_trials, 1) - 1).bit_length())
 
 
+def take_labels(labels, indexer):
+    """The labels a selector's indexer (None, a slice or indices) keeps."""
+    labels = np.asarray(labels)
+    if indexer is None:
+        return labels
+    if isinstance(indexer, slice):
+        return labels[indexer]
+    return labels[np.asarray(indexer, dtype=int)]
+
+
 class ComputationalRoutine:
     """
     Base class of all compute routines.
@@ -98,6 +108,11 @@ class ComputationalRoutine:
     Optionally ``process_batch_sum(batch, n_valid, *aux, **cfg)``: the sum
     over the first `n_valid` trials of a padded batch, the engine's fused
     path for ``keeptrials=False``.
+
+    Optionally ``device_bytes_per_trial(trial_shape, out_shape, out_dtype)``:
+    the device workspace one trial needs beyond its input and output (an
+    FFT bank's intermediates, say); chunks are sized by the larger of the
+    two (reference :929-942).
 
     Optionally ``per_trial_inputs(data, trial_positions)``: a tuple of
     numpy arrays with leading axis ``len(trial_positions)``, one row per
@@ -141,6 +156,9 @@ class ComputationalRoutine:
 
     def per_trial_inputs(self, data, trial_positions):
         return ()
+
+    def device_bytes_per_trial(self, trial_shape, out_shape, out_dtype):
+        return 0
 
     def process_batch(self, batch, *aux, **cfg):
         """The per-trial results of `batch` stacked, and, where the trial
@@ -376,14 +394,17 @@ class ComputationalRoutine:
 
     def _chunk_size(self, shp, n_positions, itemsize, aux_bytes=0):
         """Trials per chunk for input trials of shape `shp`, from the
-        per-trial input, auxiliary input and output bytes (see
+        per-trial input, auxiliary input and output bytes, or the
+        routine's device workspace where that is larger (see
         :func:`chunk_trials`)."""
         in_bytes = int(np.prod(shp)) * itemsize + aux_bytes
         out_shp, out_dt = self.out_per_trial_shapes[shp]
         out_bytes = int(np.prod(out_shp)) * np.dtype(out_dt).itemsize
         if not self.keeptrials and hasattr(self, "process_batch_sum"):
             out_bytes = 0  # fused reduction: per-trial outputs never exist
-        return chunk_trials((in_bytes + out_bytes) * 2, n_positions, self._chunk_budget)
+        per_trial = max((in_bytes + out_bytes) * 2,
+                        int(self.device_bytes_per_trial(shp, out_shp, np.dtype(out_dt))))
+        return chunk_trials(per_trial, n_positions, self._chunk_budget)
 
     def _upload_aux(self, arr, c0, n_valid, n_rows):
         """Rows ``c0 .. c0 + n_valid`` of one auxiliary input on the device,
@@ -472,6 +493,16 @@ class ComputationalRoutine:
         trl[:, 0] = bounds[:-1]
         trl[:, 1] = bounds[1:]
         return trl
+
+    def propagate_properties(self, data, out):
+        """Carry the sampling rate and the (selected) channel labels over
+        to the output (reference :1300)."""
+        if hasattr(out, "samplerate") and getattr(data, "samplerate", None) is not None:
+            out.samplerate = data.samplerate
+        if "channel" in out.dimord and "channel" in data.dimord and data.channel is not None:
+            chan = take_labels(data.channel, getattr(self.selector, "channel", None))
+            if out.data is not None and out.data.shape[out.dimord.index("channel")] == chan.size:
+                out.channel = chan
 
     # ------------------------------------------------------------------ #
     # provenance

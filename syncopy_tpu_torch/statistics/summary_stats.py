@@ -110,7 +110,8 @@ def itc(spec_data, parallel=None, **kwargs):
     data_parser(spec_data, varname="spec_data", dataclass="SpectralData", empty=False)
     if not np.issubdtype(np.dtype(spec_data.data.dtype), np.complexfloating):
         raise SPYValueError(
-            legal="complex valued spectra, set `output='fourier'` in spy.freqanalysis!",
+            legal="complex valued spectra, set `output='fourier'` in "
+            "syncopy_tpu_torch.freqanalysis!",
             varname="spec_data", actual="real valued spectral data",
         )
     res = _trial_statistics(spec_data, operation="itc")

@@ -162,6 +162,23 @@ def test_output_flavours(output):
     _assert_same(out, ref, coh_abs)
 
 
+@pytest.mark.parametrize("output", ["abs", "complex"])
+def test_coherence_from_the_ports_own_spectra(output):
+    """The chain inside the port: spt.freqanalysis' fourier spectra (within
+    1e-6 of the JAX package's) through connectivityanalysis give the
+    coherence of the same AnalogData."""
+    pdata, jdata = _both([400] * 10, 4, seed=12)
+    kw = dict(method="mtmfft", tapsmofrq=4, output="fourier", keeptapers=True)
+    spec = spt.freqanalysis(pdata, **kw)
+    got, want = np.asarray(spec.data), np.asarray(spy.freqanalysis(jdata, **kw).data)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    chained = np.asarray(spt.connectivityanalysis(spec, method="coh", output=output).data)
+    direct = np.asarray(spt.connectivityanalysis(pdata, method="coh", tapsmofrq=4,
+                                                 output=output).data)
+    assert chained.shape == direct.shape and chained.dtype == direct.dtype
+    assert np.abs(chained - direct).max() < COH_TOL
+
+
 def test_forced_multi_chunk(monkeypatch):
     """A tiny chunk budget splits 21 trials into padded chunks of 4."""
     T, C = 250, 4
@@ -251,6 +268,8 @@ def test_from_arrays_builds_the_same_object():
     "syncopy_tpu_torch.statistics",
     "syncopy_tpu_torch.statistics.jackknifing",
     "syncopy_tpu_torch.connectivity.AV_compRoutines",
+    "syncopy_tpu_torch.specest",
+    "syncopy_tpu_torch.ops.wavelet",
 ])
 def test_import_pulls_in_no_jax(module):
     code = ("import sys, " + module + "; "

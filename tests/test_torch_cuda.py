@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
 # Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
 # PPC resultant) against complex128 oracles and their plain versions, and
-# the coherence, PPC, Granger, jackknife, corr and trial-statistics paths
-# on the card against the same paths on the CPU. They skip where no CUDA device is present (the kernels have no
+# the coherence, PPC, Granger, jackknife, corr, trial-statistics and
+# freqanalysis paths on the card against the same paths on the CPU. They skip where no CUDA device is present (the kernels have no
 # CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -530,3 +530,33 @@ def test_trial_statistics_on_card_match_cpu(cuda_device):
     for op in ("mean", "var", "std"):
         out, ref = _on_both_devices(lambda: getattr(spt, op)(adata, dim="trials"))
         assert np.abs(np.asarray(out.data) - np.asarray(ref.data)).max() < 1e-6
+
+
+#: freqanalysis calls of each method at small sizes, on ragged trials where
+#: the method allows them
+FREQANALYSIS_CASES = [
+    dict(method="mtmfft", tapsmofrq=4, output="fourier", keeptapers=True),
+    dict(method="mtmfft", output="pow", keeptrials=False, exact_fft=True),
+    dict(method="mtmconvol", t_ftimwin=0.101, toi=np.array([0.0, 0.05, 0.3, 0.4])),
+    dict(method="welch", t_ftimwin=0.064, toi=0.5, tapsmofrq=40),
+    dict(method="wavelet", foi=[15.0, 40.0, 90.0, 200.0], output="fourier"),
+    dict(method="superlet", order_max=4, foi=[15.0, 40.0, 90.0, 200.0]),
+    dict(method="superlet", order_max=3, adaptive=True, foi=[15.0, 40.0, 90.0],
+         output="fourier"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", FREQANALYSIS_CASES)
+def test_freqanalysis_on_card_matches_cpu(cuda_device, kw):
+    """Each method on the card (cuFFT) against the same call on the CPU,
+    within 1e-5 of the CPU result's maximum, with no kernel launched."""
+    adata = _ragged_analog(28) if kw["method"] != "mtmfft" or kw.get("keeptrials", True) \
+        else _equal_analog(28)
+    launches = [ck.csd_accumulate_tiled.launches, pk.ppc_accumulate_tiled.launches]
+    out, ref = _on_both_devices(lambda: spt.freqanalysis(adata, **kw))
+    assert [ck.csd_accumulate_tiled.launches, pk.ppc_accumulate_tiled.launches] == launches
+    got, want = np.asarray(out.data), np.asarray(ref.data)
+    assert got.shape == want.shape and got.dtype == want.dtype and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.array_equal(out.trialdefinition, ref.trialdefinition)

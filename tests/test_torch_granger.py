@@ -17,7 +17,11 @@
 #   window by window), the rank gate and the non-convergence fallback (on
 #   and off), within 1e-5 on G; G's dependence on the channel order, a
 #   fault both packages share;
+# - the same from spectra the port makes itself (spt.freqanalysis), held
+#   to the JAX package's spectra within 1e-6;
 # - the errors, the aux-info channel of the engine.
+
+import warnings
 
 import numpy as np
 import pytest
@@ -430,6 +434,67 @@ def test_pairwise_granger_matches_jax(cmb):
     ref = spy.connectivityanalysis(jd, method="granger", channelcmb=cmb)
     _assert_granger_equal(out, ref)
     assert out.info["max rel. err"] == pytest.approx(ref.info["max rel. err"], rel=1e-3)
+
+
+def _port_spectra(jdata, **kw):
+    """The port's own spectra (spt.freqanalysis) of `jdata`'s arrays, held
+    to the JAX package's spectra of the same arrays within 1e-6 of their
+    maximum."""
+    pdata = spt.from_arrays(np.asarray(jdata.data), np.asarray(jdata.trialdefinition),
+                            jdata.samplerate)
+    pspec = spt.freqanalysis(pdata, **kw)
+    got, want = np.asarray(pspec.data), np.asarray(spy.freqanalysis(jdata, **kw).data)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.complex64
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    return pspec
+
+
+def _jax_twin(pspec):
+    """A JAX SpectralData of the same array as the port's spectra: the
+    Granger stage is compared on one CSD (see the module's header)."""
+    jd = spy.SpectralData(data=np.asarray(pspec.data), samplerate=pspec.samplerate,
+                          freq=np.asarray(pspec.freq))
+    jd.trialdefinition = np.asarray(pspec.trialdefinition)
+    return jd
+
+
+def test_spectral_granger_from_the_ports_spectra():
+    """test_spectral_granger_matches_jax with spectra the port made."""
+    data = spy.synthdata.ar2_network(nTrials=80, samplerate=200, nSamples=800, seed=1)
+    pspec = _port_spectra(data, method="mtmfft", taper="hann", output="fourier",
+                          polyremoval=0, demean_taper=True, keeptrials=True)
+    out = spt.connectivityanalysis(pspec, method="granger")
+    ref = spy.connectivityanalysis(_jax_twin(pspec), method="granger")
+    _assert_granger_equal(out, ref)
+    assert out.info["converged"] and out.info["max rel. err"] < 5e-6
+
+
+def test_time_resolved_granger_from_the_ports_spectra():
+    """test_time_resolved_granger_matches_jax with spectra the port made."""
+    data = spy.synthdata.ar2_network(nTrials=40, samplerate=200, nSamples=800, seed=3)
+    pspec = _port_spectra(data, method="mtmconvol", t_ftimwin=1.25, toi=0.5, taper=None,
+                          output="fourier", polyremoval=0, demean_taper=True)
+    out = spt.connectivityanalysis(pspec, method="granger")
+    ref = spy.connectivityanalysis(_jax_twin(pspec), method="granger")
+    _assert_granger_equal(out, ref)
+    assert out.data.shape[0] == 7 and out.info["converged"]
+
+
+def test_pairwise_granger_from_the_ports_exact_spectra():
+    """test_pairwise_granger_matches_jax with exact_fft spectra the port
+    made: the float32 warning stays off, as the spectra's cfg says."""
+    adj = np.zeros((3, 3), dtype=np.float32)
+    adj[1, 0] = adj[2, 1] = 0.25
+    data = spy.synthdata.ar2_network(nTrials=60, AdjMat=adj, samplerate=200, nSamples=400,
+                                     seed=4)
+    pspec = _port_spectra(data, method="mtmfft", taper="hann", output="fourier",
+                          polyremoval=0, demean_taper=True, keeptrials=True, exact_fft=True)
+    cmb = [[0, 1], [2]]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="Granger from precomputed float32")
+        out = spt.connectivityanalysis(pspec, method="granger", channelcmb=cmb)
+    ref = spy.connectivityanalysis(_jax_twin(pspec), method="granger", channelcmb=cmb)
+    _assert_granger_equal(out, ref)
 
 
 def _mtmconvol_spectra():
