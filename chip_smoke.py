@@ -9,7 +9,7 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA card must be present; prints its name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-2. build: compiles the two CUDA libraries from csrc/ (three kernels) in
+2. build: compiles the three CUDA libraries from csrc/ (four kernels) in
    parallel, one nvcc each, and prints the seconds of each;
 3. kernel: csd_accumulate_tiled on the card against its plain PyTorch
    version and a complex128 oracle at seven shapes, incl. NaN padding
@@ -83,19 +83,35 @@ Phases, each of which raises on failure (non-zero exit):
    wavelet_tfr_device and superlet_device rows, held on their first 16
    trials to float64 linear convolutions at the exact length (the
    superlet's geometric mean over orders in float64).
-Phases 9 to 14 each print their warm wall, peak device memory and peak
-host RSS, and the launch counters, which stay at 0 there: these paths
-run no CUDA kernel of the port. Phases 12 to 14 also print trials/s, the
-bytes read back with their copy time, and a stage split (gather, pad and
-upload; compute; readback) replayed with a synchronize after each step.
+15. preprocessing on phase 6's data. a: the Butterworth cascade kernel
+   (sosfiltfilt and sosfilt) against float64 scipy and its plain version
+   at every design (lp/hp/bp/bs, orders 1 to 8) and edge shape (T = 2, 5,
+   28, 1000 by C = 1, 33, 64, 128, a NaN trial); two launches bitwise
+   equal; kernel, plain version, bound and warps per SM at (1000, 1000,
+   64), and one long recording (1, 250000, 64). b: preprocessing(but,
+   bp 30-100 Hz, order 4), one kernel launch a chunk, within 1e-6 of
+   float64 scipy sosfiltfilt on 64 trials. c: BASELINE config #5's chain,
+   resampledata to 250 Hz (1e-5 of a float64 polyphase resample of the
+   same data) and its coherence (the CSD kernel; within 1e-5 of the
+   float64 coherence of the float64 chain), and downsample with an
+   anti-alias FIR. d: the FIR band-pass 8-12 Hz (order 400) with its
+   Hilbert envelope against float64 numpy and scipy.signal.hilbert, and
+   the minimum-phase FIR on 16 trials. e: timelockanalysis with the
+   covariance of the band-passed data against float64.
+Phases 9 to 15 each print their warm wall, peak device memory and peak
+host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
+these paths run no CUDA kernel of the port. Phases 12 to 15 also print
+trials/s, the bytes read back with their copy time, and a stage split
+(gather, pad and upload; compute; readback) replayed with a synchronize
+after each step.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
 kernel's launches (csd_accumulate is on no path of the port: the JAX
 package calls it only from its Pallas probe), error, times and bound (the
-least time the card could take: operations over the FP32 peak against
-bytes over the HBM rate, from this run's shapes); the Granger path
-launches none of them. The last line is ``{"ok": true, "device":
+least time the card could take: operations over the FP32 peak, FP64 for
+the Butterworth cascade, against bytes over the HBM rate, from this run's
+shapes); the Granger path launches none of them. The last line is ``{"ok": true, "device":
 {...}}``. TF32 stays off throughout, asserted.
 
     python3 chip_smoke.py --save-csd DIR
@@ -585,8 +601,6 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
 
     from syncopy_tpu_torch.connectivity import connectivity_analysis as pca
     from syncopy_tpu_torch.ops import connectivity as pc
-    from syncopy_tpu_torch.ops import csd_kernels as ck
-    from syncopy_tpu_torch.ops import ppc_kernels as pk
 
     t0 = time.perf_counter()
     data = ar2_network(n_chan)
@@ -604,9 +618,7 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
         seen["csd"] = np.asarray(st_out.data)[0]
         return granger_stage(st_out, *args)
 
-    ck.csd_accumulate_tiled.launches = 0
-    ck.csd_accumulate.launches = 0
-    pk.ppc_accumulate_tiled.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pca._granger = keep_csd
@@ -618,10 +630,7 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
     finally:
         pca._granger = granger_stage
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = (ck.csd_accumulate_tiled.launches, ck.csd_accumulate.launches,
-                pk.ppc_accumulate_tiled.launches)
-    if launches != (0, 0, 0):
-        raise AssertionError("granger launched kernels {}".format(launches))
+    launches = tuple(read_launches("granger {} ch".format(n_chan)).values())
     host_route = [str(w.message) for w in caught if "host float64" in str(w.message)
                   or "did NOT converge" in str(w.message)]
     if host_route or "host float64" in out.log:
@@ -770,31 +779,40 @@ class HostPeak:
 
 def zero_launches():
     from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
 
     ck.csd_accumulate_tiled.launches = 0
     ck.csd_accumulate.launches = 0
     pk.ppc_accumulate_tiled.launches = 0
+    ik.sosfilt_batch.launches = 0
 
 
-def read_launches(name):
-    """The three kernels' launches since zero_launches(): none may have
-    run on the paths of phases 9 to 14."""
+def read_launches(name, expect=None):
+    """The four kernels' launches since zero_launches(): each must equal
+    its count in `expect` and the others 0 (none may have run on the paths
+    of phases 9 to 14). Returns them."""
     from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
 
     launches = {"csd_accumulate_tiled": ck.csd_accumulate_tiled.launches,
                 "csd_accumulate": ck.csd_accumulate.launches,
-                "ppc_accumulate_tiled": pk.ppc_accumulate_tiled.launches}
+                "ppc_accumulate_tiled": pk.ppc_accumulate_tiled.launches,
+                "sosfiltfilt": ik.sosfilt_batch.launches}
     print("{}: kernel launches {}".format(name, launches))
-    if any(launches.values()):
-        raise AssertionError("{} launched kernels {}".format(name, launches))
+    want = dict.fromkeys(launches, 0)
+    want.update(expect or {})
+    if launches != want:
+        raise AssertionError("{} launched kernels {}, expected {}".format(name, launches, want))
+    return launches
 
 
-def measured_call(name, fn):
+def measured_call(name, fn, expect=None):
     """One checked call of `fn` with the launch counters at 0, peak device
-    memory and peak host RSS reset before it; returns its result and
-    (wall s, peak device GB, peak host GB)."""
+    memory and peak host RSS reset before it; the launches must be those
+    of `expect` (see read_launches). Returns its result and (wall s, peak
+    device GB, peak host GB)."""
     import torch
 
     import gc
@@ -808,7 +826,7 @@ def measured_call(name, fn):
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    read_launches(name)
+    read_launches(name, expect)
     dev_gb = torch.cuda.max_memory_allocated() / 1e9
     print("{}: first call {:.3f} s; peak device memory {:.3f} GB; peak host RSS {:.3f} GB{}".format(
         name, wall, dev_gb, host.gb, " (since the process started)" if host.since_start
@@ -1069,7 +1087,7 @@ def corr_phase(spt):
     return summary
 
 
-def captured_call(name, fn):
+def captured_call(name, fn, expect=None):
     """:func:`measured_call` of `fn`, and the compute routine its frontend
     ran (the first one initialized), for the stage split."""
     from syncopy_tpu_torch.engine.routine import ComputationalRoutine
@@ -1082,7 +1100,7 @@ def captured_call(name, fn):
 
     ComputationalRoutine.initialize = keep
     try:
-        res, stats = measured_call(name, fn)
+        res, stats = measured_call(name, fn, expect)
     finally:
         ComputationalRoutine.initialize = initialize
     return res, stats, routines[0]
@@ -1123,6 +1141,8 @@ def engine_stages(cr, adata):
 
             dev, aux = timed("gather, pad and upload", upload)
             res = timed("compute", lambda: cr.process_batch(dev, *aux, **cr.cfg))
+            if isinstance(res, tuple):
+                res = res[0]  # the per-trial info rides along
             if cr.keeptrials:
                 nbytes += res.numel() * res.element_size()
                 timed("readback", lambda: res.cpu())
@@ -1136,14 +1156,15 @@ def engine_stages(cr, adata):
     return ms, nbytes
 
 
-def spectral_case(name, adata, n_trials, call, check, reps=3):
-    """One freqanalysis configuration on the card: a first call with the
-    launch counters at 0 and the peak memory read, `check(out)` (which
-    returns the error against the float64 oracle and raises past its
-    bar), the warm wall over `reps` calls and the stage split."""
+def spectral_case(name, adata, n_trials, call, check, reps=3, expect=None):
+    """One freqanalysis (or preprocessing) configuration on the card: a
+    first call with the launch counters at 0 (or at `expect`, see
+    read_launches) and the peak memory read, `check(out)` (which returns
+    the error against the float64 oracle and raises past its bar), the warm
+    wall over `reps` calls and the stage split of its first routine."""
     import torch
 
-    out, (first, dev_gb, host_gb), cr = captured_call(name, call)
+    out, (first, dev_gb, host_gb), cr = captured_call(name, call, expect)
     err = check(out)
     del out
     wall = warm_wall(name, call, reps)
@@ -1155,7 +1176,7 @@ def spectral_case(name, adata, n_trials, call, check, reps=3):
     torch.cuda.empty_cache()
     return {"first": first, "wall": wall, "trials_per_s": n_trials / wall, "err": err,
             "peak_device_gb": dev_gb, "peak_host_gb": host_gb, "stages": ms,
-            "readback_gb": nbytes / 1e9}
+            "readback_gb": nbytes / 1e9, "routine": cr}
 
 
 def held(name, err, tol=SPEC_REL_TOL):
@@ -1416,6 +1437,388 @@ def wavelet_phase(spt, data, trl):
     return summary
 
 
+#: phase 15's bars, relative to the oracle's maximum: the IIR kernel and
+#: the IIR main path against float64 scipy (float64 inside: one float32
+#: rounding on the way in, one on the way out); the resampling, the FIR and
+#: Hilbert route and timelockanalysis against float64 (float32 FFTs and
+#: sums); the chained coherence (absolute) is COH_ABS_TOL
+IIR_REL_TOL = 1e-6
+PREPROC_REL_TOL = 1e-5
+#: trials held to float64 scipy and numpy on the IIR and FIR main paths
+PREPROC_ORACLE_TRIALS = 64
+#: the H100 SXM's published FP64 peak outside the tensor cores
+PEAK_FP64_FLOPS = 34e12
+#: phase 15's long recording: one trial of 250 s at 1 kHz, 64 channels
+LONG_TRIAL_SAMPLES = 250_000
+
+
+def iir_bound(N, T, C, n_sections, pad):
+    """(bound_ms, bound_by, pipe_ms) of one sosfiltfilt launch: its 9 FP64
+    operations per (extended sample, section, pass) over the FP64 peak
+    against the float32 input read once and the output written once over
+    the HBM rate; pipe_ms adds the kernel's float64 scratch of the
+    extended trials, written once and read once."""
+    E = T + 2 * pad
+    flops = 9.0 * N * C * E * n_sections * 2
+    nbytes = 2.0 * N * T * C * 4
+    t_ops, t_bytes = flops / PEAK_FP64_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    pipe = (nbytes + 2.0 * N * E * C * 8) / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations", pipe) if t_ops >= t_bytes else (t_bytes, "bytes", pipe)
+
+
+def sosfilt_scipy(x, sos, twopass):
+    """float64 scipy sosfiltfilt (the port's padlen) or sosfilt along
+    axis 1 of a numpy batch."""
+    from scipy import signal
+
+    from syncopy_tpu_torch.ops.iir_kernels import sosfilt_padlen
+
+    xd = np.asarray(x, dtype=np.float64)
+    if twopass:
+        y = signal.sosfiltfilt(sos, xd, axis=1, padlen=sosfilt_padlen(sos, x.shape[1]))
+    else:
+        y = signal.sosfilt(sos, xd, axis=1)
+    return np.ascontiguousarray(y)
+
+
+def nan_rel_err(got, want):
+    """max|got - want| / max|want| over the finite entries of `want`; the
+    NaN entries must match."""
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError("NaN where the oracle has none, or none where it has NaN")
+    ok = ~np.isnan(want)
+    if not ok.any():
+        return 0.0
+    return float(np.abs(got[ok] - want[ok]).max() / np.abs(want[ok]).max())
+
+
+def check_iir(ik, x, sos, twopass, name, plain=True):
+    """One sosfiltfilt (or sosfilt) case of a (N, T, C) float32 numpy batch:
+    the kernel against float64 scipy and, if `plain`, against its plain
+    version on the card (the same float64 arithmetic). Returns the error
+    against scipy or raises."""
+    import torch
+
+    dev = torch.from_numpy(x).to("cuda")
+    got = ik.sosfilt_batch(dev, sos, twopass).cpu().numpy()
+    err = nan_rel_err(got, sosfilt_scipy(x, sos, twopass))
+    line = "sosfilt{} {}: rel err vs float64 scipy {:.3e}".format(
+        "filt" if twopass else "", name, err)
+    if plain:
+        plain_err = nan_rel_err(got, ik.sosfilt_batch_plain(dev, sos, twopass).cpu().numpy())
+        line += ", vs the plain version {:.3e}".format(plain_err)
+        if not plain_err < IIR_REL_TOL:
+            raise AssertionError("{}: plain err {:.3e} >= {}".format(name, plain_err, IIR_REL_TOL))
+    print(line)
+    if not err < IIR_REL_TOL:
+        raise AssertionError("{}: err {:.3e} >= {}".format(name, err, IIR_REL_TOL))
+    return err
+
+
+def iir_kernel_checks(ik, fb, data):
+    """Phase 15a: the kernel at every Butterworth design (lp/hp/bp/bs,
+    orders 1 to 8, both directions) and at the edge shapes (T = 2, 5, 28,
+    1000 by C = 1, 33, 64, 128, a NaN trial), against float64 scipy and the
+    plain version; then at the main-path shape: bitwise determinism, the
+    times and the bound; then one long recording."""
+    import torch
+
+    rng = np.random.default_rng(15)
+    for ftype, freq in (("lp", 40.0), ("hp", 20.0), ("bp", [30.0, 100.0]), ("bs", [45.0, 55.0])):
+        for order in range(1, 9):
+            sos = fb.butter_sos(order, freq, ftype, FS)
+            x = rng.normal(size=(4, N_SAMPLES, 33)).astype("f4")
+            for twopass in (True, False):
+                check_iir(ik, x, sos, twopass, "{} order {} (4, 1000, 33)".format(ftype, order),
+                          plain=order in (1, 8))
+    sos = fb.butter_sos(4, [30.0, 100.0], "bp", FS)
+    for T in (2, 5, 28, N_SAMPLES):
+        for C in (1, 33, 64, 128):
+            x = rng.normal(size=(3, T, C)).astype("f4")
+            x[1, T // 2, C // 2] = np.nan
+            for twopass in (True, False):
+                check_iir(ik, x, sos, twopass, "bp order 4 ({}, {}, {}), NaN trial 1".format(
+                    3, T, C), plain=T < N_SAMPLES or C == 64)
+
+    x = torch.from_numpy(data).to("cuda").reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+    got = ik.sosfilt_batch(x, sos)
+    plain = ik.sosfilt_batch_plain(x, sos)
+    torch.cuda.synchronize()
+    plain_diff = float((got - plain).abs().max())
+    n = PREPROC_ORACLE_TRIALS
+    want = sosfilt_scipy(data[: n * N_SAMPLES].reshape(n, N_SAMPLES, N_CHANNELS), sos, True)
+    head = got[:n].cpu().numpy()
+    err = float(np.abs(head - want).max())
+    rel = err / float(np.abs(want).max())
+    print("sosfiltfilt bp order 4 at ({}, {}, {}): max abs err vs float64 scipy {:.3e} on {} "
+          "trials ({:.3e} of the maximum); kernel - plain version max |diff| {:.3e}".format(
+              N_TRIALS, N_SAMPLES, N_CHANNELS, err, n, rel, plain_diff))
+    if not rel < IIR_REL_TOL or not plain_diff <= IIR_REL_TOL * float(np.abs(want).max()):
+        raise AssertionError("sosfiltfilt at the main-path shape off float64")
+    del plain, got
+    check_deterministic("sosfiltfilt at ({}, {}, {})".format(N_TRIALS, N_SAMPLES, N_CHANNELS),
+                        lambda: ik.sosfilt_batch(x, sos))
+    kernel_ms = cuda_ms(lambda: ik.sosfilt_batch(x, sos))
+    plain_ms = cuda_ms(lambda: ik.sosfilt_batch_plain(x, sos), reps=3, warmup=1)
+    pad = ik.sosfilt_padlen(sos, N_SAMPLES)
+    bound_ms, bound_by, pipe_ms = iir_bound(N_TRIALS, N_SAMPLES, N_CHANNELS, sos.shape[0], pad)
+    threads, blocks = ik.kernel_occupancy(sos.shape[0])
+    props = torch.cuda.get_device_properties(0)
+    resident = N_TRIALS * N_CHANNELS / 32 / props.multi_processor_count
+    print("sosfiltfilt kernel at ({}, {}, {}), S = {}, padlen {}: {:.4f} ms (median of 20), plain "
+          "version {:.4f} ms (median of 3), CUDA events; bound {:.4f} ms ({}), {:.1f}% of it; "
+          "with the float64 scratch written and read {:.4f} ms, {:.1f}% of it; {} threads a "
+          "block, {} blocks ({} warps) resident per SM allowed, {:.1f} warps per SM launched; no "
+          "library call computes an IIR recurrence".format(
+              N_TRIALS, N_SAMPLES, N_CHANNELS, sos.shape[0], pad, kernel_ms, plain_ms, bound_ms,
+              bound_by, 100 * bound_ms / kernel_ms, pipe_ms, 100 * pipe_ms / kernel_ms, threads,
+              blocks, threads * blocks // 32, resident))
+    del x
+    torch.cuda.empty_cache()
+
+    y = rng.normal(size=(1, LONG_TRIAL_SAMPLES, N_CHANNELS)).astype("f4")
+    check_iir(ik, y, sos, True, "one long trial (1, {}, {})".format(
+        LONG_TRIAL_SAMPLES, N_CHANNELS), plain=False)
+    long_dev = torch.from_numpy(y).to("cuda")
+    long_ms = cuda_ms(lambda: ik.sosfilt_batch(long_dev, sos), reps=3, warmup=1)
+    long_bound = iir_bound(1, LONG_TRIAL_SAMPLES, N_CHANNELS, sos.shape[0], pad)
+    print("sosfiltfilt kernel on one long trial (1, {}, {}): {:.4f} ms (median of 3, CUDA "
+          "events); bound {:.4f} ms ({}): {} threads, one serial chain of {} samples each".format(
+              LONG_TRIAL_SAMPLES, N_CHANNELS, long_ms, long_bound[0], long_bound[1], N_CHANNELS,
+              2 * (LONG_TRIAL_SAMPLES + 2 * pad)))
+    del long_dev
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "pipe_ms": pipe_ms, "long_ms": long_ms,
+            "warps_per_sm": resident}
+
+
+def engine_chunks(cr):
+    """The compute chunks a finished call's routine ran."""
+    count = 0
+    for shp, positions in cr.buckets.items():
+        chunk = cr._chunk_size(shp, len(positions), 4)
+        count += -(-len(positions) // chunk)
+    return count
+
+
+def resample_f64(x, up, down, kernel):
+    """Float64 polyphase resampling on the card of a (N, T, C) batch:
+    zero-stuff by `up`, the exact linear convolution with ``kernel * up``
+    cropped 'same' from (K - 1) // 2, every `down`-th sample,
+    ceil(T up / down) samples."""
+    import torch
+
+    N, T, C = x.shape
+    stuffed = torch.zeros((N, T * up, C), dtype=torch.float64, device=x.device)
+    stuffed[:, ::up] = x.double()
+    k = torch.from_numpy(np.asarray(kernel, dtype=np.float64) * up).to(x.device)
+    K, n = k.numel(), T * up + k.numel() - 1
+    y = torch.fft.irfft(torch.fft.rfft(stuffed, n=n, dim=1) * torch.fft.rfft(k, n=n)[:, None],
+                        n=n, dim=1)
+    start = (K - 1) // 2
+    return y[:, start : start + T * up : down][:, : int(np.ceil(T * up / down))]
+
+
+def coherence_batch_f64(x, tapers):
+    """Float64 coherence on the card of a (N, T, C) batch: demean, taper,
+    rfft, trial x taper CSD sum, normalization; and the auto power."""
+    import torch
+
+    x = x.double()
+    x = x - x.mean(dim=1, keepdim=True)
+    spec = torch.fft.rfft(tapers[None, :, :, None] * x[:, None], dim=2)
+    rows = spec.reshape(-1, spec.shape[2], spec.shape[3]).permute(1, 0, 2)
+    csd = torch.matmul(rows.transpose(1, 2), rows.conj())
+    diag = torch.diagonal(csd, dim1=-2, dim2=-1).real
+    coh = csd.abs() / torch.sqrt(diag[:, :, None] * diag[:, None, :])
+    return coh.cpu().numpy(), diag.cpu().numpy()
+
+
+def fir_twopass_f64(x, kernel):
+    """Float64 numpy twopass 'same'-mode FIR of a (N, T, C) batch: the
+    exact linear convolution cropped from (K - 1) // 2, then the same on
+    the time-reversed result, reversed back."""
+    from scipy import signal
+
+    K, T = len(kernel), x.shape[1]
+    k = np.asarray(kernel, dtype=np.float64)[None, :, None]
+
+    def same(v):
+        return signal.fftconvolve(v, k, axes=1)[:, (K - 1) // 2 : (K - 1) // 2 + T]
+
+    return same(same(x.astype(np.float64))[:, ::-1])[:, ::-1]
+
+
+def preproc_phase(spt, data, trl, kernel_ms):
+    """Phase 15: preprocessing on the north-star data. b, the IIR main path
+    (Butterworth band-pass, the CUDA kernel once a chunk) against float64
+    scipy; c, BASELINE config #5's chain (resample to 250 Hz, coherence)
+    against a float64 chain, and downsample with an anti-alias FIR; d, the
+    FIR band-pass with its Hilbert envelope (the JAX package's
+    preproc_pipeline_device filter) against float64 numpy and scipy, and
+    the minimum-phase FIR; e, timelockanalysis of the band-passed data
+    against float64. Returns the summary, with the IIR path's launches."""
+    import torch
+    from scipy import signal
+
+    from syncopy_tpu_torch.engine.routine import chunk_trials
+    from syncopy_tpu_torch.ops import filtering as fb
+    from syncopy_tpu_torch.ops.windows import make_tapers
+    from syncopy_tpu_torch.shared.input_processors import process_taper
+
+    t_phase = time.perf_counter()
+    adata = spt.from_arrays(data, trl, FS)
+    summary, n = {}, PREPROC_ORACLE_TRIALS
+    raw = data.reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+    sos = fb.butter_sos(4, [30.0, 100.0], "bp", FS)
+
+    # -- b. the IIR main path
+    kept = {}
+
+    def check_iir_path(out):
+        kept["bp"] = out
+        got = np.asarray(out.data).reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+        if not np.isfinite(got).all() or out.info["nan_trials"] != []:
+            raise AssertionError("band-passed data not finite, or NaN trials flagged")
+        return held("preprocessing but bp (first {} trials)".format(n), nan_rel_err(
+            got[:n], sosfilt_scipy(raw[:n], sos, True)), IIR_REL_TOL)
+
+    bp_call = lambda: spt.preprocessing(  # noqa: E731
+        adata, filter_class="but", filter_type="bp", freq=[30, 100], order=4)
+    n_chunks = -(-N_TRIALS // chunk_trials_for_bp())
+    summary["but"] = spectral_case("preprocessing but bp", adata, N_TRIALS, bp_call,
+                                   check_iir_path, expect={"sosfiltfilt": n_chunks})
+    if engine_chunks(summary["but"].pop("routine")) != n_chunks:
+        raise AssertionError("the IIR path ran another chunk count than {}".format(n_chunks))
+    summary["launches"] = n_chunks
+    print("preprocessing but bp: {} kernel launch(es) for {} chunk(s); kernel {:.4f} ms of the "
+          "compute stage's {:.3f} ms".format(n_chunks, n_chunks, kernel_ms,
+                                            summary["but"]["stages"]["compute"]))
+    bp = kept.pop("bp")
+
+    # -- c. config #5's chain: resample to 250 Hz, coherence
+    up, down = 1, 4
+    rs_kernel = fb._resample_kernel(up, down, N_SAMPLES, None, None, FS)
+
+    def check_resample(out):
+        kept["rs"] = out
+        got = torch.from_numpy(np.asarray(out.data)).to("cuda").reshape(N_TRIALS, -1, N_CHANNELS)
+        x = torch.from_numpy(np.asarray(bp.data)).to("cuda").reshape(
+            N_TRIALS, N_SAMPLES, N_CHANNELS)
+        return held("resampledata 250 Hz", chunked_rel_err(
+            (got[b0 : b0 + 100], resample_f64(x[b0 : b0 + 100], up, down, rs_kernel))
+            for b0 in range(0, N_TRIALS, 100)))
+
+    summary["resample"] = spectral_case("resampledata resample 250 Hz", bp, N_TRIALS, lambda: (
+        spt.resampledata(bp, resamplefs=250, method="resample")), check_resample)
+    summary["resample"].pop("routine")
+    rs = kept.pop("rs")
+    n_rs = N_SAMPLES * up // down
+    coh_chunks = -(-N_TRIALS // chunk_trials(n_rs * N_CHANNELS * 4 * 2, N_TRIALS))
+    coh, (coh_first, _, _) = measured_call("coh of the resampled data", lambda: (
+        spt.connectivityanalysis(rs, method="coh", tapsmofrq=2)),
+        expect={"csd_accumulate_tiled": coh_chunks})
+    t0 = time.perf_counter()
+    bp64 = torch.from_numpy(sosfilt_scipy(raw, sos, True)).to("cuda")
+    rs64 = torch.cat([resample_f64(bp64[b0 : b0 + 100], up, down, rs_kernel)
+                      for b0 in range(0, N_TRIALS, 100)])
+    del bp64
+    taper, taper_opt = process_taper(
+        "hann", None, 2, None, keeptapers=False, foimax=125.0, samplerate=250.0, nSamples=n_rs,
+        output="pow")
+    tapers = torch.from_numpy(make_tapers(taper, taper_opt, n_rs, n_rs, 250.0)).to(
+        "cuda", torch.float64)
+    coh64, power = coherence_batch_f64(rs64, tapers)
+    del rs64
+    got = np.asarray(coh.data)[0]
+    if got.shape != coh64.shape or not np.isfinite(got).all():
+        raise AssertionError("chained coherence shape {} or not finite".format(got.shape))
+    chain_err = float(np.abs(got - coh64).max())
+    rel_power = power / power.max(axis=0)
+    print("coh of band-pass -> resample (float64 chain in {:.1f} s): shape {}; max abs err vs "
+          "the float64 chain {:.3e} over all {} bins (the chain's power is {:.2e} to 1 of each "
+          "channel's maximum)".format(
+              time.perf_counter() - t0, got.shape, chain_err, got.shape[0],
+              float(rel_power.min())))
+    if not chain_err < COH_ABS_TOL:
+        raise AssertionError("chained coherence err {:.3e} >= {}".format(chain_err, COH_ABS_TOL))
+    coh_wall = warm_wall("coh of the resampled data", lambda: spt.connectivityanalysis(
+        rs, method="coh", tapsmofrq=2), reps=3)
+    summary["chain"] = {"err": chain_err, "coh_first": coh_first, "coh_wall": coh_wall,
+                        "csd_launches": coh_chunks}
+    del coh, rs
+
+    def check_downsample(out):
+        got = np.asarray(out.data)
+        if got.shape != (N_TRIALS * n_rs, N_CHANNELS) or not np.isfinite(got).all():
+            raise AssertionError("downsample shape {} or not finite".format(got.shape))
+        return 0.0
+
+    summary["downsample"] = spectral_case(
+        "resampledata downsample 250 Hz, lpfreq 100", bp, N_TRIALS, lambda: spt.resampledata(
+            bp, resamplefs=250, method="downsample", lpfreq=100), check_downsample)
+    summary["downsample"].pop("routine")
+
+    # -- d. FIR band-pass and Hilbert envelope
+    fir = fb.design_wsinc("hamming", 400, np.asarray([8.0, 12.0]) / FS, "bp")
+
+    def check_fir(out):
+        got = np.asarray(out.data).reshape(N_TRIALS, N_SAMPLES, N_CHANNELS)
+        want = np.abs(signal.hilbert(fir_twopass_f64(raw[:n], fir), axis=1))
+        return held("firws bp + hilbert abs (first {} trials)".format(n),
+                    nan_rel_err(got[:n], want))
+
+    summary["fir"] = spectral_case("preprocessing firws bp 8-12 Hz + hilbert abs", adata, N_TRIALS,
+                                   lambda: spt.preprocessing(
+                                       adata, filter_class="firws", filter_type="bp",
+                                       freq=[8, 12], order=400, hilbert="abs"), check_fir)
+    summary["fir"].pop("routine")
+    few = 16
+    mini = spt.from_arrays(data[: few * N_SAMPLES], trl[:few], FS)
+    out, _ = measured_call("preprocessing firws bp onepass-minphase, {} trials".format(few), lambda: (
+        spt.preprocessing(mini, filter_class="firws", filter_type="bp", freq=[8, 12], order=400,
+                          direction="onepass-minphase")))
+    k_min = fb.minphaserceps(fir)
+    want = signal.fftconvolve(raw[:few].astype(np.float64), k_min[None, :, None], axes=1)[
+        :, (len(k_min) - 1) // 2 : (len(k_min) - 1) // 2 + N_SAMPLES]
+    summary["minphase_err"] = held("firws onepass-minphase", nan_rel_err(
+        np.asarray(out.data).reshape(few, N_SAMPLES, N_CHANNELS), want))
+    del out, mini
+
+    # -- e. timelockanalysis of the band-passed data
+    def check_timelock(out):
+        x = torch.from_numpy(np.asarray(bp.data)).to("cuda", torch.float64).reshape(
+            N_TRIALS, N_SAMPLES, N_CHANNELS)
+        avg = x.mean(dim=0)
+        var = ((x - avg) ** 2).sum(dim=0) / (N_TRIALS - 1)
+        xc = x - x.mean(dim=1, keepdim=True)
+        cov = torch.einsum("ntc,ntd->cd", xc, xc) / (N_SAMPLES - 1) / N_TRIALS
+        errs = [chunked_rel_err([(torch.from_numpy(np.asarray(got)).to("cuda"), want)])
+                for got, want in ((out.avg, avg), (out.var, var), (out.cov, cov))]
+        print("timelockanalysis: avg, var, cov max err vs float64 {:.3e}, {:.3e}, {:.3e} of "
+              "their maxima".format(*errs))
+        return held("timelockanalysis avg/var/cov", max(errs))
+
+    summary["timelock"] = spectral_case("timelockanalysis covariance", bp, N_TRIALS, lambda: (
+        spt.timelockanalysis(bp, covariance=True)), check_timelock)
+    summary["timelock"].pop("routine")
+    del bp
+    torch.cuda.empty_cache()
+    print("phase 15 calls and oracles: {:.1f} s".format(time.perf_counter() - t_phase))
+    return summary
+
+
+def chunk_trials_for_bp():
+    """Trials per chunk of the band-pass routine at the north-star shape."""
+    from syncopy_tpu_torch.engine.routine import chunk_trials
+    from syncopy_tpu_torch.preproc.compRoutines import ButFiltering
+
+    cr = ButFiltering(samplerate=FS, filter_type="bp", freq=[30, 100], order=4)
+    shp = (N_SAMPLES, N_CHANNELS)
+    per_trial = max(2 * 2 * N_SAMPLES * N_CHANNELS * 4, cr.device_bytes_per_trial(shp, shp, None))
+    return chunk_trials(per_trial, N_TRIALS)
+
+
 def main():
     import torch
 
@@ -1446,6 +1849,8 @@ def main():
         raise AssertionError("TF32 must stay off for the float32 matmuls")
     from syncopy_tpu_torch.engine.routine import chunk_trials
     from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import filtering as fb
+    from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
     from syncopy_tpu_torch.shared.input_processors import process_taper
 
@@ -1456,14 +1861,15 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = {name: pool.submit(timed_build, load) for name, load in [
             ("csd_accumulate (tiled + untiled)", ck.load_csd_kernel),
-            ("ppc_accumulate", pk.load_ppc_kernel)]}
+            ("ppc_accumulate", pk.load_ppc_kernel),
+            ("sosfilt", ik.load_sosfilt_kernel)]}
         builds = {name: fut.result() for name, fut in builds.items()}
     for name, seconds in builds.items():
         print("build {}: {:.2f} s (nvcc, then load)".format(name, seconds))
-    print("build, both libraries: {:.2f} s".format(time.perf_counter() - t0))
+    print("build, all three libraries: {:.2f} s".format(time.perf_counter() - t0))
     for planar, name in [(False, "csd_accumulate_tiled"), (True, "csd_accumulate")]:
         threads, blocks = ck.kernel_occupancy(planar)
         print("{}: {} threads a block, {} blocks ({} warps) resident per SM".format(
@@ -1560,9 +1966,7 @@ def main():
     trl[:, 1] = trl[:, 0] + N_SAMPLES
     adata = spt.from_arrays(data, trl, FS)
 
-    ck.csd_accumulate_tiled.launches = 0
-    ck.csd_accumulate.launches = 0
-    pk.ppc_accumulate_tiled.launches = 0
+    zero_launches()
     coh = spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
     torch.cuda.synchronize()
     launches = ck.csd_accumulate_tiled.launches
@@ -1611,9 +2015,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 7. ppc main path ------------------------------------------------- #
-    ck.csd_accumulate_tiled.launches = 0
-    ck.csd_accumulate.launches = 0
-    pk.ppc_accumulate_tiled.launches = 0
+    zero_launches()
     ppc = spt.connectivityanalysis(adata, method="ppc", tapsmofrq=2)
     torch.cuda.synchronize()
     ppc_launches = pk.ppc_accumulate_tiled.launches
@@ -1679,8 +2081,14 @@ def main():
     mtmfft_phase(spt, data, trl, taper, taper_opt, np.asarray(coh.data)[0])
     stft_phase(spt, data, trl)
     wavelet_phase(spt, data, trl)
-    del data
     print("phases 12 to 14: {:.1f} s".format(time.perf_counter() - t0))
+
+    # -- 15. preprocessing ---------------------------------------------------- #
+    t0 = time.perf_counter()
+    iir = iir_kernel_checks(ik, fb, data)
+    preproc = preproc_phase(spt, data, trl, iir["ms"])
+    del data
+    print("phase 15: {:.1f} s".format(time.perf_counter() - t0))
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
@@ -1717,6 +2125,19 @@ def main():
         "plain_ms": ppc_plain_ms,
         "bound_ms": ppc_bound_ms,
         "bound_by": ppc_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "sosfiltfilt",
+        "route": "cuda",
+        "source": "syncopy_tpu_torch/csrc/sosfilt.cu",
+        "replaces": "syncopy_tpu/ops/filtering.py:181 (_biquad, lax.associative_scan; no "
+                    "pallas_call)",
+        "launches": preproc["launches"],
+        "max_abs_err": iir["max_abs_err"],
+        "ms": iir["ms"],
+        "plain_ms": iir["plain_ms"],
+        "bound_ms": iir["bound_ms"],
+        "bound_by": iir["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

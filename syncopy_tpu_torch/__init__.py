@@ -15,16 +15,26 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .datatype import AnalogData, CrossSpectralData, SpectralData, Selector  # noqa: E402
+from .datatype import (  # noqa: E402
+    AnalogData,
+    CrossSpectralData,
+    Selector,
+    SpectralData,
+    SpikeData,
+    TimeLockData,
+)
 from .connectivity import connectivityanalysis  # noqa: E402
 from .engine.routine import set_device  # noqa: E402
+from .preproc import preprocessing, resampledata  # noqa: E402
 from .specest import freqanalysis  # noqa: E402
-from .statistics import itc, mean, median, std, var  # noqa: E402
+from .statistics import itc, mean, median, spike_psth, std, timelockanalysis, var  # noqa: E402
 
 __all__ = [
     "AnalogData",
     "CrossSpectralData",
     "SpectralData",
+    "SpikeData",
+    "TimeLockData",
     "Selector",
     "connectivityanalysis",
     "freqanalysis",
@@ -32,8 +42,12 @@ __all__ = [
     "itc",
     "mean",
     "median",
+    "preprocessing",
+    "resampledata",
     "set_device",
+    "spike_psth",
     "std",
+    "timelockanalysis",
     "var",
 ]
 

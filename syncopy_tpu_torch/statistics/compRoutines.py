@@ -4,15 +4,25 @@
 # and summary statistics along one dimension.
 #
 # Port of syncopy_tpu/statistics/compRoutines.py (TrialReduce, LOOAverage,
-# NumpyStatDim, _propagate_dim_props). Covariance and EngineScratch land
-# with ROADMAP Queue 1 item 11.
+# NumpyStatDim, Covariance, EngineScratch, _propagate_dim_props).
 
 import numpy as np
 import torch
 
 from ..engine.routine import ComputationalRoutine
 
-__all__ = ["NumpyStatDim", "TrialReduce", "LOOAverage"]
+__all__ = ["NumpyStatDim", "Covariance", "TrialReduce", "LOOAverage", "EngineScratch"]
+
+
+class EngineScratch:
+    """Duck-typed output target for engine-internal passes whose result is
+    not a valid data-class payload (e.g. a (nTrials, C, C) covariance
+    stack): plain attributes, no shape validation, no persistence."""
+
+    def __init__(self):
+        self._log = ""
+        self.data = None
+        self.log = ""
 
 
 def _real_dtype(dtype):
@@ -212,6 +222,38 @@ class NumpyStatDim(ComputationalRoutine):
 
         _propagate_dim_props(in_data, out_data, sel, reduced_dim=dim,
                              label=self.cfg["operation"])
+
+
+class Covariance(ComputationalRoutine):
+    """
+    Per-trial channel covariance of time-locked data
+    (reference statistics/compRoutines.py:139-233): the demeaned float32
+    ``x.T @ x / (T - ddof)`` of each trial, batched (one matmul a chunk,
+    TF32 off). Output per trial: ``(1, nChannel, nChannel)`` stacked along
+    the first axis.
+    """
+
+    valid_kws = ["ddof", "demean"]
+
+    def __init__(self, ddof=1, demean=True):
+        super().__init__(ddof=int(ddof), demean=bool(demean))
+
+    def output_trial_shape(self, trial_shape):
+        C = trial_shape[1]
+        return (1, C, C), np.dtype(np.float32)
+
+    def process_single_trial(self, trial, **cfg):
+        return self.process_batch(trial[None], **cfg)[0]
+
+    def process_batch(self, batch, **cfg):
+        x = batch.to(torch.float32)
+        if cfg["demean"]:
+            x = x - x.mean(dim=1, keepdim=True)
+        n = x.shape[1] - cfg["ddof"]
+        return (torch.matmul(x.transpose(1, 2), x) / n)[:, None]
+
+    def process_metadata(self, data, out):
+        pass  # the caller attaches the result as an extra dataset
 
 
 def _propagate_dim_props(in_data, out_data, sel, reduced_dim, label):

@@ -1,9 +1,10 @@
 # -*- coding: utf-8 -*-
 # Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
-# PPC resultant) against complex128 oracles and their plain versions, and
-# the coherence, PPC, Granger, jackknife, corr, trial-statistics and
-# freqanalysis paths on the card against the same paths on the CPU. They skip where no CUDA device is present (the kernels have no
-# CPU mode). This file imports no jax, so on a
+# PPC resultant, Butterworth cascade) against oracles and their plain
+# versions, and the coherence, PPC, Granger, jackknife, corr,
+# trial-statistics, freqanalysis, preprocessing and resampling paths on
+# the card against the same paths on the CPU. They skip where no CUDA
+# device is present (the kernels have no CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 import warnings
@@ -15,6 +16,7 @@ import torch
 import syncopy_tpu_torch as spt
 from syncopy_tpu_torch.engine import routine
 from syncopy_tpu_torch.ops import csd_kernels as ck
+from syncopy_tpu_torch.ops import iir_kernels as ik
 from syncopy_tpu_torch.ops import ppc_kernels as pk
 
 torch.set_num_threads(1)
@@ -560,3 +562,138 @@ def test_freqanalysis_on_card_matches_cpu(cuda_device, kw):
     assert got.shape == want.shape and got.dtype == want.dtype and np.isfinite(got).all()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     assert np.array_equal(out.trialdefinition, ref.trialdefinition)
+
+
+# -- the Butterworth cascade (csrc/sosfilt.cu) ------------------------------- #
+
+#: (filter type, order, cut-offs in Hz at 1 kHz)
+IIR_DESIGNS = [(ft, order, freq) for order in range(1, 9)
+               for ft, freq in (("lp", 40.0), ("hp", 20.0), ("bp", [30.0, 100.0]),
+                                ("bs", [45.0, 55.0]))]
+#: (N, T, C): the edge lengths (T = 2, 5, 28: padlen cut to T - 1) and
+#: channel counts off, on and past a warp
+IIR_SHAPES = [(3, 2, 1), (2, 5, 33), (4, 28, 64), (3, 1000, 128), (2, 1000, 33)]
+
+
+def _iir_check(x_np, sos, twopass, cuda_device):
+    """The kernel against its plain version on the card (the same float64
+    arithmetic: within one float32 rounding of each other) and against
+    scipy's float64 sosfiltfilt/sosfilt (padlen as the port sets it), both
+    within 1e-6 of scipy's maximum; NaN where scipy gives NaN."""
+    from scipy import signal
+
+    x = torch.from_numpy(x_np).to(cuda_device)
+    before = ik.sosfilt_batch.launches
+    got = ik.sosfilt_batch(x, sos, twopass).cpu().numpy()
+    assert ik.sosfilt_batch.launches == before + 1
+    plain = ik.sosfilt_batch_plain(x, sos, twopass).cpu().numpy()
+    xd = x_np.astype(np.float64)
+    if twopass:
+        want = signal.sosfiltfilt(sos, xd, axis=1, padlen=ik.sosfilt_padlen(sos, x_np.shape[1]))
+    else:
+        want = signal.sosfilt(sos, xd, axis=1)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isnan(plain), np.isnan(want))
+    ok = ~np.isnan(want)
+    scale = np.abs(want[ok]).max()
+    assert np.abs(got[ok] - want[ok]).max() <= 1e-6 * scale
+    assert np.abs(got[ok] - plain[ok]).max() <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype, order, freq", IIR_DESIGNS)
+def test_sosfilt_kernel_every_design(cuda_device, ftype, order, freq):
+    rng = np.random.default_rng(order)
+    x = rng.normal(size=(3, 1000, 33)).astype(np.float32)
+    sos = ik_sos(order, freq, ftype)
+    for twopass in (True, False):
+        _iir_check(x, sos, twopass, cuda_device)
+
+
+def ik_sos(order, freq, ftype):
+    from syncopy_tpu_torch.ops.filtering import butter_sos
+
+    return butter_sos(order, freq, ftype, 1000.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, T, C", IIR_SHAPES)
+@pytest.mark.parametrize("twopass", [True, False])
+def test_sosfilt_kernel_edge_shapes_and_nan_trials(cuda_device, N, T, C, twopass):
+    rng = np.random.default_rng(T + C)
+    x = rng.normal(size=(N, T, C)).astype(np.float32)
+    x[1, T // 2, C // 2] = np.nan  # one NaN trial among finite ones
+    _iir_check(x, ik_sos(4, [30.0, 100.0], "bp"), twopass, cuda_device)
+
+
+@pytest.mark.cuda
+def test_sosfilt_kernel_run_time_sections(cuda_device):
+    """Past the compile-time instances (S > 8): the run-time one."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 600, 40)).astype(np.float32)
+    for twopass in (True, False):
+        _iir_check(x, ik_sos(10, [60.0, 200.0], "bp"), twopass, cuda_device)
+
+
+@pytest.mark.cuda
+def test_sosfilt_kernel_bitwise_deterministic(cuda_device):
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(5, 700, 64)).astype(np.float32)).to(cuda_device)
+    sos = ik_sos(4, [30.0, 100.0], "bp")
+    assert torch.equal(ik.sosfilt_batch(x, sos), ik.sosfilt_batch(x, sos))
+
+
+@pytest.mark.cuda
+def test_sosfilt_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((2, 50, 8), device=cuda_device)
+    sos = ik_sos(2, 40.0, "lp")
+    with pytest.raises(TypeError):
+        ik.sosfilt_batch(x.double(), sos)
+    with pytest.raises(ValueError):
+        ik.sosfilt_batch(x.transpose(1, 2), sos)
+    with pytest.raises(ValueError):
+        ik.sosfilt_batch(x, np.tile(sos, (65, 1)))
+
+
+@pytest.mark.cuda
+def test_sosfilt_kernel_occupancy(cuda_device):
+    threads, blocks = ik.kernel_occupancy(4)
+    assert threads == 128 and blocks >= 1
+
+
+#: preprocessing and resampledata calls at small sizes
+PREPROC_CASES = [
+    ("preprocessing", dict(filter_class="but", filter_type="bp", freq=[30, 100], order=4)),
+    ("preprocessing", dict(filter_class="but", filter_type="hp", freq=20, direction="onepass",
+                           polyremoval=1, zscore=True)),
+    ("preprocessing", dict(filter_class="firws", filter_type="bp", freq=[8, 12], order=200,
+                           hilbert="abs")),
+    ("preprocessing", dict(filter_class="firws", filter_type="lp", freq=50, order=100,
+                           direction="onepass-minphase", rectify=True)),
+    ("resampledata", dict(resamplefs=250, method="resample")),
+    ("resampledata", dict(resamplefs=250, method="downsample", lpfreq=100)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func, kw", PREPROC_CASES)
+def test_preprocessing_on_card_matches_cpu(cuda_device, monkeypatch, func, kw):
+    """Each route on the card (the IIR kernel, cuFFT) against the same call
+    on the CPU (the plain cascade), within 1e-5 of the CPU result's
+    maximum; in chunks of 4, the IIR kernel launches once a chunk."""
+    from syncopy_tpu_torch.preproc.compRoutines import ButFiltering
+
+    adata = _ragged_analog(29)
+    # four 400-sample trials a chunk at the IIR routine's workspace
+    per_trial = ButFiltering(samplerate=1000.0, filter_type="bp", freq=[30, 100]
+                             ).device_bytes_per_trial((400, 6), None, None)
+    monkeypatch.setattr(routine, "DEFAULT_CHUNK_BUDGET", 4 * per_trial + 1)
+    ik.sosfilt_batch.launches = 0
+    out, ref = _on_both_devices(lambda: getattr(spt, func)(adata, **kw))
+    if kw.get("filter_class") == "but":
+        assert ik.sosfilt_batch.launches == 3 + 1  # 9 trials in chunks of 4, 4 in one
+    got, want = np.asarray(out.data), np.asarray(ref.data)
+    assert got.shape == want.shape and got.dtype == want.dtype and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.array_equal(out.trialdefinition, ref.trialdefinition)
+    assert out.info == ref.info
