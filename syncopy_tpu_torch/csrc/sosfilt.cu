@@ -8,9 +8,12 @@
 // engine's batch is; second-order sections float64 (S, 6) as scipy's
 // butter(..., output="sos") gives them; output float32 (N, T, C).
 //
-// Section s maps its input w to y in direct form I, in float64:
+// Section s maps its input w to y in direct form I, in float64, the terms
+// that do not depend on this sample's input first and the newest feedback
+// term last:
 //
-//     y[n] = ((b0 w[n] + b1 w[n-1]) + b2 w[n-2] - a1 y[n-1]) - a2 y[n-2]
+//     p    = ((b1 w[n-1] + b2 w[n-2]) - a2 y[n-2]) - a1 y[n-1]
+//     y[n] = b0 w[n] + p
 //
 // and y is the input of section s + 1. The histories before the first
 // sample are primed with a constant x0 (the steady state of every section
@@ -25,30 +28,48 @@
 // (sosfilt): the forward cascade primed with x[0] * 0, so a NaN first
 // sample stays NaN.
 //
-// Every product and sum is rounded on its own (__dmul_rn, __dadd_rn,
-// __dsub_rn: no contraction into FMAs), in the order above, so the plain
-// PyTorch version in ops/iir_kernels.py, which evaluates the same
-// expressions one tensor operation at a time, gives the same bits.
-//
 // Layout: one thread per (trial, channel) sequence, neighbouring threads on
 // neighbouring channels, so every step's load and store of a warp is one
-// coalesced 128-byte line at C >= 32. The whole cascade (all S sections)
-// runs per sample in registers: 2 (S + 1) float64 histories, the
-// coefficients in shared memory (broadcast reads). The time loop loads
-// UNROLL samples before it runs their recurrence, which does not depend on
-// them. S = 1..8 are compile-time instances (orders up to 8 band-pass and
-// 16 low-pass); any other S up to MAX_SECTIONS runs the run-time instance,
-// whose histories live in local memory.
+// coalesced line at C >= 32. The coefficients sit in shared memory
+// (broadcast reads, off the dependent chain), -a1 and -a2 stored negated.
+// S = 1..8 are compile-time instances (orders up to 8 band-pass and 16
+// low-pass), their histories in registers; any other S up to MAX_SECTIONS
+// runs the run-time instance, whose histories live in local memory.
 //
-// Bound on the H100 at the main-path shape (1000, 1000, 64), S = 4, padlen
-// 27: the function moves 256 MB in and 256 MB out, ~0.15 ms at 3.35 TB/s;
-// this design also writes and reads its 540 MB scratch, ~0.48 ms in all.
-// Its 9 FP64 operations per sample and section are issued one by one, and
-// only N x C = 64,000 threads (~15 warps an SM) hide the latency of the
-// serial chain: see PERF.md section 6 for the measured time. A one-trial
-// recording gives C threads and a long serial chain; a time-split scan is
-// the cure, not taken here. Two launches are bitwise equal: each thread's
-// arithmetic is fixed and no sum crosses threads.
+// What bounds it on the H100, and what the design does about it. One
+// thread's recurrence is a serial chain, and the card has too few threads
+// to hide a long one (64,000 at the main-path shape (1000, 1000, 64), about
+// 15 warps an SM; 64 on one long recording). So:
+// - feedback off the chain: p is formed from the previous steps' values,
+//   so a section's input reaches its output through one product and one
+//   sum, and the section's own loop y[n-1] -> y[n] is a product and two
+//   sums;
+// - sections pipelined across samples (a wavefront): at step t section s
+//   runs sample t - s on the value section s - 1 produced at step t - 1,
+//   so the S sections of a step are independent and issue back to back; a
+//   masked prologue and epilogue of S - 1 steps run no section on a sample
+//   outside the sequence. Boundary b keeps the last three values of the
+//   input of section b (b = 0: the sequence, b = s + 1: the output of
+//   section s), newest first;
+// - loads a block ahead: the next UNROLL samples (float32 input or odd
+//   extension forward, float64 scratch read backwards) are loaded into a
+//   register double buffer while the current block runs; stores stay one
+//   coalesced line a step. (At the main-path shape an L2 prefetch two
+//   blocks further on cost 6% and blocks of 16 samples 9%, which on one
+//   long recording gained 1% and 18%: PERF.md section 6.)
+// - FMAs: b0 w + p and the feedback terms are fused (FMA = 1), 5 FP64
+//   instructions per sample, section and pass instead of 9, and the loop
+//   y[n-1] -> y[n] is two FMAs. Taken because the A/B of the two builds
+//   (scripts/sosfilt_kernel_ab.py, PERF.md section 6) showed them ahead at
+//   both shapes by more than the spread of its rounds. The plain PyTorch
+//   version in ops/iir_kernels.py rounds every product and sum on its own
+//   in the same order (the FMA = 0 build gives its bits), so the two agree
+//   within 2 float32 ulps of the maximum, not bitwise.
+// What is left is the bytes of the float64 scratch (the design's floor,
+// ~0.48 ms at the main-path shape against 0.15 ms for the input and output
+// alone) and, on one long recording, one warp per sub-partition waiting on
+// its FP64 issue and its loads. Two launches are bitwise equal: each
+// thread's arithmetic is fixed and no sum crosses threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,90 +77,209 @@
 namespace {
 
 constexpr int NTHREADS = 128;
+// resident blocks per SM every instance is built for: 4 x 128 threads is
+// 16 warps, the main-path shape's one wave, at 128 registers a thread
+constexpr int MIN_BLOCKS = 4;
+// samples per block of loads (the register double buffer)
 constexpr int UNROLL = 8;
+// 1: fused multiply-adds; 0: every product and sum rounded on its own
+constexpr int FMA = 1;
 constexpr int MAX_SECTIONS = 64;
-// per section in shared memory: b0, b1, b2, a1, a2, b0 + b1 + b2, 1 + a1 + a2
+// per section in shared memory: b0, b1, b2, -a1, -a2, b0 + b1 + b2, 1 + a1 + a2
 constexpr int NCOEF = 7;
 
-struct Coef {
-    double b0, b1, b2, a1, a2, bsum, asum;
-};
-
-__device__ __forceinline__ Coef coef_at(const double* c, int s) {
-    const double* p = c + NCOEF * s;
-    return Coef{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+__device__ __forceinline__ double mul_add(double a, double b, double c) {
+    if constexpr (FMA != 0) return __fma_rn(a, b, c);
+    else return __dadd_rn(__dmul_rn(a, b), c);
 }
 
-// histories h1[s] = w_s[n-1], h2[s] = w_s[n-2] of the section boundaries
-// s = 0..S: w_0 is the input, w_S the output, w_{s+1} = y of section s
 template <int S>
-struct Cascade {
-    static constexpr int NH = (S > 0 ? S : MAX_SECTIONS) + 1;
-    double h1[NH], h2[NH];
+struct Wavefront {
+    static constexpr int NB = (S > 0 ? S : MAX_SECTIONS) + 1;
+    // boundary b: h1[b], h2[b], h3[b], the last three values of the input
+    // of section b (b = 0 the sequence, b = s + 1 the output of section s)
+    double h1[NB], h2[NB], h3[NB];
 
     __device__ __forceinline__ void prime(const double* coef, int ns, double x0) {
         double h = x0;
         if constexpr (S > 0) {
 #pragma unroll
             for (int s = 0; s < S; ++s) {
-                const Coef k = coef_at(coef, s);
-                h1[s] = h;
-                h2[s] = h;
-                h = __ddiv_rn(__dmul_rn(h, k.bsum), k.asum);
+                h1[s] = h2[s] = h3[s] = h;
+                h = __ddiv_rn(__dmul_rn(h, coef[NCOEF * s + 5]), coef[NCOEF * s + 6]);
             }
-            h1[S] = h;
-            h2[S] = h;
+            h1[S] = h2[S] = h3[S] = h;
         } else {
             for (int s = 0; s < ns; ++s) {
-                const Coef k = coef_at(coef, s);
-                h1[s] = h;
-                h2[s] = h;
-                h = __ddiv_rn(__dmul_rn(h, k.bsum), k.asum);
+                h1[s] = h2[s] = h3[s] = h;
+                h = __ddiv_rn(__dmul_rn(h, coef[NCOEF * s + 5]), coef[NCOEF * s + 6]);
             }
-            h1[ns] = h;
-            h2[ns] = h;
+            h1[ns] = h2[ns] = h3[ns] = h;
         }
     }
 
-    __device__ __forceinline__ double section(const double* coef, int s, double w) {
-        const Coef k = coef_at(coef, s);
-        const double u = __dadd_rn(__dadd_rn(__dmul_rn(k.b0, w), __dmul_rn(k.b1, h1[s])),
-                                   __dmul_rn(k.b2, h2[s]));
-        const double y = __dsub_rn(__dsub_rn(u, __dmul_rn(k.a1, h1[s + 1])),
-                                   __dmul_rn(k.a2, h2[s + 1]));
-        h2[s] = h1[s];
-        h1[s] = w;
-        return y;
+    // section s on boundary s's newest value; shifts its output into
+    // boundary s + 1, which section s + 1 has read already this step
+    __device__ __forceinline__ void section(const double* coef, int s) {
+        const double* k = coef + NCOEF * s;
+        double p = __dmul_rn(k[1], h2[s]);
+        p = mul_add(k[2], h3[s], p);
+        p = mul_add(k[4], h2[s + 1], p);
+        p = mul_add(k[3], h1[s + 1], p);
+        const double y = mul_add(k[0], h1[s], p);
+        h3[s + 1] = h2[s + 1];
+        h2[s + 1] = h1[s + 1];
+        h1[s + 1] = y;
     }
 
-    __device__ __forceinline__ double step(const double* coef, int ns, double w) {
+    // step t: boundary 0 takes sample t (if t < E), then section s runs
+    // sample t - s, last section first; MASKED runs only the sections whose
+    // sample lies in [0, E)
+    template <bool MASKED>
+    __device__ __forceinline__ void step(const double* coef, int ns, int64_t t, int64_t E,
+                                         double v) {
+        if (!MASKED || t < E) {
+            h3[0] = h2[0];
+            h2[0] = h1[0];
+            h1[0] = v;
+        }
         if constexpr (S > 0) {
 #pragma unroll
-            for (int s = 0; s < S; ++s) w = section(coef, s, w);
-            h2[S] = h1[S];
-            h1[S] = w;
+            for (int s = S - 1; s >= 0; --s)
+                if (!MASKED || (t - s >= 0 && t - s < E)) section(coef, s);
         } else {
-            for (int s = 0; s < ns; ++s) w = section(coef, s, w);
-            h2[ns] = h1[ns];
-            h1[ns] = w;
+            for (int s = ns - 1; s >= 0; --s)
+                if (!MASKED || (t - s >= 0 && t - s < E)) section(coef, s);
         }
-        return w;
+    }
+
+    // the last section's newest output
+    __device__ __forceinline__ double out(int ns) const {
+        if constexpr (S > 0) return h1[S];
+        else return h1[ns];
+    }
+
+    // the whole cascade over the E samples of `src`: `sink(e, y)` gets
+    // output sample e of the last section, e = 0 .. E - 1 in order
+    template <class Src, class Sink>
+    __device__ __forceinline__ void run(const double* coef, int ns, int64_t E, const Src& src,
+                                        Sink& sink) {
+        using Raw = typename Src::Raw;
+        const int64_t lag = (S > 0 ? S : ns) - 1;
+        // prologue: steps 0 .. lag - 1 emit nothing
+#pragma unroll 1
+        for (int64_t t = 0; t < lag; ++t)
+            step<true>(coef, ns, t, E, t < E ? src.value(t, src.load(t)) : 0.0);
+        // steady steps lag .. E - 1, every section live, in blocks of UNROLL
+        // loaded a block ahead
+        const int64_t blocks = E > lag ? (E - lag) / UNROLL : 0;
+        Raw cur[UNROLL], nxt[UNROLL];
+        if (blocks > 0) {
+#pragma unroll
+            for (int k = 0; k < UNROLL; ++k) cur[k] = src.load(lag + k);
+        }
+#pragma unroll 1
+        for (int64_t b = 0; b < blocks; ++b) {
+            const int64_t t0 = lag + b * UNROLL;
+            // the last block loads itself again: no branch, no address past E
+            const int64_t t1 = b + 1 < blocks ? t0 + UNROLL : t0;
+#pragma unroll
+            for (int k = 0; k < UNROLL; ++k) nxt[k] = src.load(t1 + k);
+#pragma unroll
+            for (int k = 0; k < UNROLL; ++k) {
+                step<false>(coef, ns, t0 + k, E, src.value(t0 + k, cur[k]));
+                sink(t0 + k - lag, out(ns));
+            }
+#pragma unroll
+            for (int k = 0; k < UNROLL; ++k) cur[k] = nxt[k];
+        }
+        // the rest of the steady steps, fewer than UNROLL
+#pragma unroll 1
+        for (int64_t t = lag + blocks * UNROLL; t < E; ++t) {
+            step<false>(coef, ns, t, E, src.value(t, src.load(t)));
+            sink(t - lag, out(ns));
+        }
+        // epilogue: the sections drain, no input
+#pragma unroll 1
+        for (int64_t t = E > lag ? E : lag; t < E + lag; ++t) {
+            step<true>(coef, ns, t, E, 0.0);
+            sink(t - lag, out(ns));
+        }
     }
 };
 
-// sample e of the odd extension of one sequence (stride C) by `pad`
-// samples at both ends: 2 x[0] - x[pad - e] before, 2 x[T-1] - x[2T - 2 -
-// (e - pad)] after
-__device__ __forceinline__ double extended(const float* xs, int64_t C, int64_t T, int64_t pad,
-                                           double x_first, double x_last, int64_t e) {
-    if (e < pad) return __dsub_rn(2.0 * x_first, static_cast<double>(xs[(pad - e) * C]));
-    const int64_t t = e - pad;
-    if (t < T) return static_cast<double>(xs[t * C]);
-    return __dsub_rn(2.0 * x_last, static_cast<double>(xs[(2 * T - 2 - t) * C]));
-}
+// one sequence (stride C) as it is
+struct Plain {
+    using Raw = float;
+    const float* xs;
+    int64_t C;
+    __device__ __forceinline__ float load(int64_t e) const { return xs[e * C]; }
+    __device__ __forceinline__ double value(int64_t, float r) const {
+        return static_cast<double>(r);
+    }
+};
+
+// the odd extension of one sequence by `pad` samples at both ends: 2 x[0]
+// - x[pad - e] before, 2 x[T-1] - x[2T - 2 - (e - pad)] after
+struct OddExtension {
+    using Raw = float;
+    const float* xs;
+    int64_t C, T, pad;
+    double first2, last2;  // 2 x[0], 2 x[T-1]
+    __device__ __forceinline__ int64_t index(int64_t e) const {
+        const int64_t t = e - pad;
+        return t < 0 ? -t : (t < T ? t : 2 * T - 2 - t);
+    }
+    __device__ __forceinline__ float load(int64_t e) const { return xs[index(e) * C]; }
+    __device__ __forceinline__ double value(int64_t e, float r) const {
+        const double v = static_cast<double>(r);
+        const int64_t t = e - pad;
+        return t < 0 ? __dsub_rn(first2, v) : (t < T ? v : __dsub_rn(last2, v));
+    }
+};
+
+// one float64 scratch sequence of E samples read backwards
+struct Reversed {
+    using Raw = double;
+    const double* ys;
+    int64_t C, E;
+    __device__ __forceinline__ double load(int64_t e) const { return ys[(E - 1 - e) * C]; }
+    __device__ __forceinline__ double value(int64_t, double r) const { return r; }
+};
+
+// forward twopass output: the float64 scratch, and its last sample
+struct ToScratch {
+    double* ys;
+    int64_t C;
+    double last;
+    __device__ __forceinline__ void operator()(int64_t e, double y) {
+        ys[e * C] = y;
+        last = y;
+    }
+};
+
+// onepass output, rounded to float32
+struct ToOutput {
+    float* os;
+    int64_t C;
+    __device__ __forceinline__ void operator()(int64_t e, double y) {
+        os[e * C] = __double2float_rn(y);
+    }
+};
+
+// backward twopass output: reversed sample e is extended sample E - 1 - e;
+// only the window [pad, pad + T) is written, rounded to float32
+struct ToCroppedOutput {
+    float* os;
+    int64_t C, E, pad, T;
+    __device__ __forceinline__ void operator()(int64_t e, double y) {
+        const int64_t t = E - 1 - e - pad;
+        if (t >= 0 && t < T) os[t * C] = __double2float_rn(y);
+    }
+};
 
 template <int S, bool TWOPASS>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 sosfilt_kernel(const float* __restrict__ x, const double* __restrict__ sos,
                double* __restrict__ scratch, float* __restrict__ out, int64_t N, int64_t T,
                int64_t C, int ns, int64_t pad) {
@@ -150,8 +290,8 @@ sosfilt_kernel(const float* __restrict__ x, const double* __restrict__ sos,
         c[0] = r[0];
         c[1] = r[1];
         c[2] = r[2];
-        c[3] = r[4];
-        c[4] = r[5];
+        c[3] = -r[4];
+        c[4] = -r[5];
         c[5] = __dadd_rn(__dadd_rn(r[0], r[1]), r[2]);
         c[6] = __dadd_rn(__dadd_rn(1.0, r[4]), r[5]);
     }
@@ -161,57 +301,27 @@ sosfilt_kernel(const float* __restrict__ x, const double* __restrict__ sos,
     if (g >= N * C) return;
     const int64_t n = g / C, c = g - n * C;
     const float* xs = x + n * T * C + c;
-    Cascade<S> cas;
+    float* os = out + n * T * C + c;
+    Wavefront<S> wf;
 
     if (!TWOPASS) {
-        float* os = out + n * T * C + c;
-        const double x0 = static_cast<double>(xs[0]);
-        cas.prime(coef, ns, __dmul_rn(x0, 0.0));
-        for (int64_t t0 = 0; t0 < T; t0 += UNROLL) {
-            double v[UNROLL];
-#pragma unroll
-            for (int k = 0; k < UNROLL; ++k)
-                v[k] = t0 + k < T ? static_cast<double>(xs[(t0 + k) * C]) : 0.0;
-#pragma unroll
-            for (int k = 0; k < UNROLL; ++k)
-                if (t0 + k < T) os[(t0 + k) * C] = __double2float_rn(cas.step(coef, ns, v[k]));
-        }
+        wf.prime(coef, ns, __dmul_rn(static_cast<double>(xs[0]), 0.0));
+        ToOutput sink{os, C};
+        wf.run(coef, ns, T, Plain{xs, C}, sink);
         return;
     }
 
     const int64_t E = T + 2 * pad;
-    double* ys = scratch + n * E * C + c;
-    const double x_first = static_cast<double>(xs[0]);
-    const double x_last = static_cast<double>(xs[(T - 1) * C]);
+    const double first2 = 2.0 * static_cast<double>(xs[0]);
+    const double last2 = 2.0 * static_cast<double>(xs[(T - 1) * C]);
+    const OddExtension ext{xs, C, T, pad, first2, last2};
+    ToScratch fwd{scratch + n * E * C + c, C, 0.0};
+    wf.prime(coef, ns, ext.value(0, ext.load(0)));
+    wf.run(coef, ns, E, ext, fwd);
 
-    // forward cascade over the extended sequence into the scratch
-    cas.prime(coef, ns, extended(xs, C, T, pad, x_first, x_last, 0));
-    for (int64_t e0 = 0; e0 < E; e0 += UNROLL) {
-        double v[UNROLL];
-#pragma unroll
-        for (int k = 0; k < UNROLL; ++k)
-            v[k] = e0 + k < E ? extended(xs, C, T, pad, x_first, x_last, e0 + k) : 0.0;
-#pragma unroll
-        for (int k = 0; k < UNROLL; ++k)
-            if (e0 + k < E) ys[(e0 + k) * C] = cas.step(coef, ns, v[k]);
-    }
-
-    // backward cascade over the scratch; only the cropped window is written
-    float* os = out + n * T * C + c;
-    cas.prime(coef, ns, ys[(E - 1) * C]);
-    for (int64_t e0 = E - 1; e0 >= 0; e0 -= UNROLL) {
-        double v[UNROLL];
-#pragma unroll
-        for (int k = 0; k < UNROLL; ++k) v[k] = e0 - k >= 0 ? ys[(e0 - k) * C] : 0.0;
-#pragma unroll
-        for (int k = 0; k < UNROLL; ++k) {
-            const int64_t e = e0 - k;
-            if (e >= 0) {
-                const double y = cas.step(coef, ns, v[k]);
-                if (e >= pad && e < pad + T) os[(e - pad) * C] = __double2float_rn(y);
-            }
-        }
-    }
+    ToCroppedOutput bwd{os, C, E, pad, T};
+    wf.prime(coef, ns, fwd.last);
+    wf.run(coef, ns, E, Reversed{fwd.ys, C, E}, bwd);
 }
 
 template <bool TWOPASS>
@@ -266,4 +376,15 @@ extern "C" int sosfilt_occupancy(int64_t S, int* threads, int* blocks) {
     *threads = NTHREADS;
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel_for<true>(S), NTHREADS, 0));
+}
+
+// Registers a thread and local memory bytes a thread (spills, and the
+// run-time instance's histories) of the instance that runs S sections
+extern "C" int sosfilt_attributes(int64_t S, int twopass, int* registers, int* local_bytes) {
+    cudaFuncAttributes attr{};
+    const cudaError_t rc = twopass ? cudaFuncGetAttributes(&attr, kernel_for<true>(S))
+                                   : cudaFuncGetAttributes(&attr, kernel_for<false>(S));
+    *registers = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(rc);
 }

@@ -8,12 +8,14 @@
 # (:181-258), whose recurrence runs as a lax.associative_scan over 2x2
 # affine state maps (plain XLA; PyTorch has no associative scan and no call
 # that computes an IIR recurrence). The kernel runs one thread per (trial,
-# channel) sequence through all sections in float64 registers, the whole
-# sosfiltfilt (odd extension, forward cascade into a float64 scratch,
-# backward cascade, crop) in one launch; see the source's header. Bounded
-# on the H100 by its bytes (PERF.md section 6). The plain version evaluates
-# the same float64 expressions in the same order, one tensor operation at a
-# time, a Python loop over time for the two feedback taps only.
+# channel) sequence through all sections in float64 registers, the sections
+# pipelined across samples, the whole sosfiltfilt (odd extension, forward
+# cascade into a float64 scratch, backward cascade, crop) in one launch;
+# see the source's header. Bounded on the H100 by its bytes (PERF.md
+# section 6). The plain version evaluates the same float64 expressions in
+# the same order, one tensor operation at a time, a Python loop over time
+# for the two feedback taps only; the kernel fuses products and sums into
+# FMAs, so the two agree within 2 float32 ulps of the maximum.
 
 import ctypes
 
@@ -23,7 +25,7 @@ import torch
 from ._nvcc import load_library
 
 __all__ = ["sosfilt_batch", "sosfilt_batch_plain", "sosfilt_float64_plain", "sosfilt_padlen",
-           "load_sosfilt_kernel", "kernel_occupancy", "MAX_SECTIONS"]
+           "load_sosfilt_kernel", "kernel_occupancy", "kernel_attributes", "MAX_SECTIONS"]
 
 #: sections the kernel takes (csrc/sosfilt.cu MAX_SECTIONS)
 MAX_SECTIONS = 64
@@ -42,6 +44,9 @@ def load_sosfilt_kernel():
     lib.sosfilt_occupancy.argtypes = [i64, ctypes.POINTER(ctypes.c_int),
                                       ctypes.POINTER(ctypes.c_int)]
     lib.sosfilt_occupancy.restype = ctypes.c_int
+    lib.sosfilt_attributes.argtypes = [i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.sosfilt_attributes.restype = ctypes.c_int
     return lib
 
 
@@ -58,6 +63,21 @@ def kernel_occupancy(n_sections):
     return threads.value, blocks.value
 
 
+def kernel_attributes(n_sections, twopass=True):
+    """
+    ``(registers a thread, local memory bytes a thread)`` of the kernel
+    instance that runs `n_sections` sections; the local bytes of a
+    compile-time instance (1 to 8 sections) are its spills.
+    """
+    lib = load_sosfilt_kernel()
+    registers, local_bytes = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.sosfilt_attributes(int(n_sections), int(bool(twopass)), ctypes.byref(registers),
+                                ctypes.byref(local_bytes))
+    if rc != 0:
+        raise RuntimeError("sosfilt attributes query failed: cudaError {}".format(rc))
+    return registers.value, local_bytes.value
+
+
 def sosfilt_padlen(sos, n_samples):
     """scipy's sosfiltfilt edge: ``3 * ntaps``, ntaps corrected for
     first-order sections, at most ``n_samples - 1``."""
@@ -71,7 +91,9 @@ def _cascade_plain(w, sos, x0):
     """The sections of `sos` in turn over the (N, E, C) float64 `w` along
     dim 1, the histories primed with the constant `x0` (N, C): section s
     sees ``w[-1] = w[-2] = x0_s`` and ``y[-1] = y[-2] = x0_{s+1} =
-    x0_s (b0 + b1 + b2) / (1 + a1 + a2)``."""
+    x0_s (b0 + b1 + b2) / (1 + a1 + a2)``. Each output is formed in the
+    kernel's order, the newest feedback term last: ``p = ((b1 w[n-1] + b2
+    w[n-2]) - a2 y[n-2]) - a1 y[n-1]``, then ``y[n] = b0 w[n] + p``."""
     E = w.shape[1]
     h = x0
     for b0, b1, b2, _, a1, a2 in np.asarray(sos, dtype=np.float64).tolist():
@@ -81,11 +103,12 @@ def _cascade_plain(w, sos, x0):
         y_ss = h * bsum / torch.full((), asum, dtype=h.dtype, device=h.device)
         wm1 = torch.cat([h[:, None], w[:, :-1]], dim=1)
         wm2 = torch.cat([h[:, None], h[:, None], w[:, :-2]], dim=1)[:, :E]
-        u = b0 * w + b1 * wm1 + b2 * wm2
-        y = torch.empty_like(u)
+        q = b1 * wm1 + b2 * wm2
+        bw = b0 * w
+        y = torch.empty_like(q)
         y1 = y2 = y_ss
         for n in range(E):
-            yn = u[:, n] - a1 * y1 - a2 * y2
+            yn = bw[:, n] + ((q[:, n] - a2 * y2) - a1 * y1)
             y[:, n] = yn
             y2, y1 = y1, yn
         w, h = y, y_ss
@@ -95,18 +118,20 @@ def _cascade_plain(w, sos, x0):
 def sosfilt_batch_plain(x, sos, twopass=True):
     """
     Plain PyTorch version of :func:`sosfilt_batch`: the kernel's float64
-    arithmetic step by step (:func:`sosfilt_float64_plain`), rounded once
-    to float32 at the end.
+    arithmetic step by step, each product and sum rounded on its own
+    (:func:`sosfilt_float64_plain`), rounded once to float32 at the end.
     """
     return sosfilt_float64_plain(x, sos, twopass).to(torch.float32)
 
 
 def sosfilt_float64_plain(x, sos, twopass=True):
     """
-    The float64 result of :func:`sosfilt_batch` before its final rounding,
-    from a (N, T, C) batch of any float dtype: the kernel's arithmetic step
-    by step, batched over trials and channels (the FIR part of each section
-    vectorised, a loop over time for the two feedback taps).
+    The float64 result of :func:`sosfilt_batch_plain` before its final
+    rounding, from a (N, T, C) batch of any float dtype: the kernel's
+    arithmetic step by step (each product and sum rounded on its own, where
+    the kernel fuses them into FMAs), batched over trials and channels (the
+    FIR part of each section vectorised, a loop over time for the two
+    feedback taps).
     """
     sos = np.atleast_2d(np.asarray(sos, dtype=np.float64))
     xd = x.to(torch.float64)
