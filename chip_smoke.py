@@ -100,7 +100,24 @@ Phases, each of which raises on failure (non-zero exit):
    Hilbert envelope against float64 numpy and scipy.signal.hilbert, and
    the minimum-phase FIR on 16 trials. e: timelockanalysis with the
    covariance of the band-passed data against float64.
-Phases 9 to 15 each print their warm wall, peak device memory and peak
+16. synthetic data through a .spy container into coherence, at 1000
+   trials x 64 channels x 1000 samples. a: ar2_network_device draws
+   phase 8's AR(2) network on the card (torch.Generator, seed 7), held to
+   a float64 recursion of its own noise (1e-5 of the maximum), two draws
+   bitwise equal, the power of the undriven channels, averaged over
+   trials and channels, peaking within 2 bins of the AR(2) peak (200 Hz);
+   b: save and load of the AnalogData container
+   in a temporary directory, bitwise, with the checksum; c: arithmetic
+   (a * 1e-6 + a, a - a, a / 2.0), concat of the channel halves, the trial
+   halves joined, redefinetrial into 2000 trials of 500 samples, bitwise
+   against numpy; d: coh of the loaded container, one CSD kernel launch,
+   bitwise equal to the in-memory call, within 1e-5 of float64, 1 -> 0
+   above 0.5 and an uncoupled pair below 0.1 at the peak, and the result's
+   container round trip, bitwise; e: NWB export and import of 100 trials
+   (within one float32 ulp) and a PNG of the coherence under Agg. b and e
+   need h5py and e matplotlib: where the machine lacks them, those steps
+   print that they were not run, and c and d take the in-memory object.
+Phases 9 to 16 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
 these paths run no CUDA kernel of the port. Phases 12 to 15 also print
 trials/s, the bytes read back with their copy time, and a stage split
@@ -1825,6 +1842,254 @@ def preproc_phase(spt, data, trl, kernel_ms):
     return summary
 
 
+#: phase 16: the generator against float64 on its own noise (relative to
+#: the maximum), the AR(2) peak's bins, and the coherence bars at the peak
+#: (the 1 -> 0 drive and an uncoupled pair), set from the float64 oracle's
+#: values on this data: 0.7971 and 0.0273 (NVIDIA H100 80GB HBM3)
+SYNTH_SEED, SYNTH_REL_TOL, SYNTH_PEAK_BINS = 7, 1e-5, 2
+SYNTH_COH_DRIVEN_MIN, SYNTH_COH_UNCOUPLED_MAX = 0.5, 0.1
+#: trials written to NWB in phase 16e
+NWB_TRIALS = 100
+
+
+def bitwise(name, got, want):
+    """Raise unless `got` and `want` hold the same bits, dtype and shape."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape or got.tobytes() != want.tobytes():
+        raise AssertionError("{}: not bitwise equal ({} {} against {} {})".format(
+            name, got.dtype, got.shape, want.dtype, want.shape))
+    print("{}: bitwise equal ({} {})".format(name, got.dtype, got.shape))
+
+
+def host_wall(name, fn, nbytes=None):
+    """One host call of `fn`, its wall and (for `nbytes`) GB/s; host work."""
+    t0 = time.perf_counter()
+    res = fn()
+    wall = time.perf_counter() - t0
+    rate = "" if nbytes is None else ", {:.3f} GB/s".format(nbytes / 1e9 / wall)
+    print("{}: {:.4f} s (host){}".format(name, wall, rate))
+    return res, wall
+
+
+def ar2_f64(noise, m1, alpha2):
+    """The AR(2) recursion of `noise` (N, T, C) in float64 on the card."""
+    import torch
+
+    x = noise.double()
+    out = torch.empty_like(x)
+    out[:, :2] = x[:, :2]
+    m1t = m1.double().T
+    for t in range(2, x.shape[1]):
+        out[:, t] = out[:, t - 1] @ m1t + alpha2 * out[:, t - 2] + x[:, t]
+    return out
+
+
+def synth_phase(spt, taper, taper_opt):
+    """Phase 16: synthetic data through a .spy container into coherence, at
+    1000 trials x 64 channels x 1000 samples. a, ar2_network_device on the
+    card (phase 8's network), its recursion against float64 on the same
+    noise, two draws bitwise equal, the AR(2) peak of the undriven
+    channels' mean power; b, save and load of the AnalogData container, bitwise, with
+    the checksum; c, arithmetic, concat (channels; trials through the
+    object-list constructor) and redefinetrial on the loaded object against
+    numpy, bitwise; d, coh of the loaded container (one CSD kernel launch)
+    bitwise equal to the in-memory call and within 1e-5 of float64, the
+    drive at the peak, and the CrossSpectralData container round trip; e,
+    NWB export and import of 100 trials and a PNG of the coherence. b and
+    e need h5py, e matplotlib: where the machine lacks them, they are
+    reported as not run and c and d take the in-memory object. Returns the
+    summary, with the kernel's launches."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+
+    from syncopy_tpu_torch.synthdata.analog import _ar2_scan
+
+    t_phase = time.perf_counter()
+    summary = {}
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    print("phase 16: h5py {}, matplotlib {} on this machine".format(
+        "present" if have_h5py else "NOT INSTALLED", "present" if have_mpl else "NOT INSTALLED"))
+
+    # -- a. the generator
+    adj = np.zeros((N_CHANNELS, N_CHANNELS), np.float32)
+    adj[1, 0] = AR2_COUPLING
+
+    def draw():
+        return spt.synthdata.ar2_network_device(N_TRIALS, AdjMat=adj, nSamples=N_SAMPLES,
+                                                alphas=AR2_ALPHAS, seed=SYNTH_SEED)
+
+    x, _ = measured_call("ar2_network_device ({}, {}, {})".format(
+        N_TRIALS, N_SAMPLES, N_CHANNELS), draw)
+    gen_ms = cuda_ms(draw, reps=3, warmup=1)
+    out_bytes = x.numel() * x.element_size()
+    print("ar2_network_device: {:.3f} ms (median of 3, CUDA events), {:.3f} GB written, "
+          "{:.2f} GB/s".format(gen_ms, out_bytes / 1e9, out_bytes / 1e6 / gen_ms))
+    if not torch.equal(x, draw()):
+        raise AssertionError("two draws with the same seed differ")
+    print("ar2_network_device: two draws with seed {} bitwise equal".format(SYNTH_SEED))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SYNTH_SEED)
+    noise = torch.randn(tuple(x.shape), generator=gen, dtype=torch.float32, device="cuda")
+    m1 = torch.from_numpy(np.diag(np.full(N_CHANNELS, AR2_ALPHAS[0], np.float32)) + adj.T).cuda()
+    if not torch.equal(_ar2_scan(noise, m1, AR2_ALPHAS[1]), x):
+        raise AssertionError("the generator is not _ar2_scan of its own noise")
+    want = ar2_f64(noise, m1, AR2_ALPHAS[1])
+    summary["scan_err"] = held("_ar2_scan (generator) on its own noise", chunked_rel_err(
+        [(x, want)]), SYNTH_REL_TOL)
+    del noise, want
+    peak = spt.synthdata.ar2_peak_freq(*AR2_ALPHAS, FS)
+    # channel 0 is driven; channels 1-63 are the same undriven process, so
+    # their periodograms average with the trials' (a single channel's peak
+    # bin wanders by a few 1 Hz bins across the broad AR(2) peak)
+    power = (torch.fft.rfft(x, dim=1).abs() ** 2).mean(dim=0)[:, 1:]  # (F, C - 1)
+    hz = power.argmax(dim=0).cpu().numpy() * FS / N_SAMPLES
+    top = int(power.mean(dim=1).argmax())
+    off = abs(top - round(peak * N_SAMPLES / FS))
+    print("AR(2) peak {:.2f} Hz: the power of channels 1-{}, averaged over trials and channels, "
+          "peaks at {:.0f} Hz, {} bins off (each channel alone: {:.0f}-{:.0f} Hz)".format(
+              peak, N_CHANNELS - 1, top * FS / N_SAMPLES, off, hz.min(), hz.max()))
+    if off > SYNTH_PEAK_BINS:
+        raise AssertionError("AR(2) peak more than {} bins off".format(SYNTH_PEAK_BINS))
+    data, _ = host_wall("readback of the generated data", lambda: x.reshape(-1, N_CHANNELS).cpu()
+                        .numpy(), out_bytes)
+    del x, power
+    torch.cuda.empty_cache()
+    trl = np.column_stack([np.arange(N_TRIALS) * N_SAMPLES, np.arange(1, N_TRIALS + 1)
+                           * N_SAMPLES, np.zeros(N_TRIALS)])
+    mem = spt.from_arrays(data, trl, FS)
+    labels = np.asarray(mem.channel)
+
+    # -- b. the container round trip
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    loaded = mem
+    try:
+        if have_h5py:
+            container = os.path.join(tmp, "synth.spy")
+            host_wall("save AnalogData container", lambda: spt.save(
+                spt.from_arrays(data, trl, FS), container=container), data.nbytes)
+            loaded, _ = host_wall("load (open)", lambda: spt.load(container))
+            back, summary["load_s"] = host_wall("load: read the payload", lambda: np.asarray(
+                loaded.data), data.nbytes)
+            bitwise("loaded payload", back, data)
+            del back
+            bitwise("loaded trialdefinition", loaded.trialdefinition, mem.trialdefinition)
+            if list(loaded.channel) != list(labels) or loaded.samplerate != FS:
+                raise AssertionError("loaded labels or samplerate differ")
+            host_wall("load(checksum=True)", lambda: spt.load(container, checksum=True), data.nbytes)
+        else:
+            print("16b container round trip: not run: h5py is not installed on this machine")
+
+        # -- c. the methods, on the loaded object
+        bitwise("a * 1e-6 + a", (loaded * 1e-6 + loaded).data, data * 1e-6 + data)
+        bitwise("a - a", (loaded - loaded).data, data - data)
+        bitwise("a / 2.0", (loaded / 2.0).data, data / 2.0)
+        half = N_CHANNELS // 2
+        joined = spt.concat(loaded.selectdata(channel=list(range(half))),
+                            loaded.selectdata(channel=list(range(half, N_CHANNELS))), dim="channel")
+        bitwise("concat of the channel halves", joined.data, data)
+        joined = spt.AnalogData([mem.selectdata(trials=list(range(N_TRIALS // 2))),
+                                 mem.selectdata(trials=list(range(N_TRIALS // 2, N_TRIALS)))])
+        bitwise("the trial halves joined", joined.data, data)
+        bitwise("their trialdefinition", joined.trialdefinition, mem.trialdefinition)
+        del joined
+        short = N_SAMPLES // 2
+        trl2 = np.column_stack([np.arange(2 * N_TRIALS) * short, np.arange(1, 2 * N_TRIALS + 1)
+                                * short, np.zeros(2 * N_TRIALS)])
+        redef = spt.redefinetrial(loaded, trl=trl2)
+        bitwise("redefinetrial into {} x {}: trialdefinition".format(2 * N_TRIALS, short),
+                redef.trialdefinition, trl2)
+        for k in (0, 1, N_TRIALS - 1, 2 * N_TRIALS - 2, 2 * N_TRIALS - 1):
+            bitwise("redefinetrial trial {}".format(k), redef.trials[k],
+                    data[k * short:(k + 1) * short])
+        del redef
+
+        # -- d. coherence from the container
+        coh, stats, cr = captured_call("coh of the {} object".format(
+            "loaded" if have_h5py else "in-memory"), lambda: spt.connectivityanalysis(
+                loaded, method="coh", tapsmofrq=2), expect={"csd_accumulate_tiled": 1})
+        summary["launches"] = 1
+        summary["first"] = stats[0]
+        summary["wall"] = warm_wall("coh of the {} object".format(
+            "loaded" if have_h5py else "in-memory"), lambda: spt.connectivityanalysis(
+                loaded, method="coh", tapsmofrq=2), reps=3)
+        sources = [("from memory (phase 6's path)", mem)]
+        if loaded is not mem:
+            sources.insert(0, ("from the container", loaded))
+        for name, obj in sources:
+            ms, _ = engine_stages(cr, obj)
+            summary["stages " + name] = ms
+            print("coh stages {} (ms, synchronized): {}".format(
+                name, ", ".join("{} {:.3f}".format(k, v) for k, v in ms.items())))
+        bitwise("coh of the {} object against a call on the in-memory one".format(
+            "loaded" if have_h5py else "in-memory"), coh.data, spt.connectivityanalysis(
+                mem, method="coh", tapsmofrq=2).data)
+        got = np.asarray(coh.data)[0]
+        oracle = coherence_f64(data, taper, taper_opt)
+        summary["coh_err"] = float(np.abs(got - oracle).max())
+        print("coh of the synthetic data: max abs err vs float64 {:.3e}".format(summary["coh_err"]))
+        if not summary["coh_err"] < COH_ABS_TOL:
+            raise AssertionError("coh err {:.3e} >= {}".format(summary["coh_err"], COH_ABS_TOL))
+        f = int(np.argmin(np.abs(np.asarray(coh.freq) - peak)))
+        driven, uncoupled = got[f, 1, 0], got[f, 2, 3]
+        print("coh at {:.0f} Hz: 1 -> 0 {:.4f} (float64 {:.4f}, bar > {}), uncoupled 2 - 3 {:.4f} "
+              "(float64 {:.4f}, bar < {})".format(np.asarray(coh.freq)[f], driven, oracle[f, 1, 0],
+                                                  SYNTH_COH_DRIVEN_MIN, uncoupled, oracle[f, 2, 3],
+                                                  SYNTH_COH_UNCOUPLED_MAX))
+        if not (driven > SYNTH_COH_DRIVEN_MIN and uncoupled < SYNTH_COH_UNCOUPLED_MAX):
+            raise AssertionError("coh at the AR(2) peak outside its bars")
+        del oracle
+        if have_h5py:
+            result = os.path.join(tmp, "coh.spy")
+            saved = coh.copy()
+            host_wall("save CrossSpectralData container", lambda: spt.save(saved, container=result))
+            back = spt.load(result, checksum=True)
+            bitwise("loaded coherence", back.data, coh.data)
+            bitwise("its freq", back.freq, coh.freq)
+            del back, saved
+
+        # -- e. NWB and plot (host work)
+        if have_h5py:
+            few = mem.selectdata(trials=list(range(NWB_TRIALS)))
+            nwb = os.path.join(tmp, "first{}.nwb".format(NWB_TRIALS))
+            host_wall("save_nwb of {} trials".format(NWB_TRIALS), lambda: few.save_nwb(nwb),
+                      few.data.nbytes)
+            back, _ = host_wall("load_nwb", lambda: spt.load_nwb(nwb))
+            got, want = np.asarray(back.data), np.asarray(few.data)
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            print("NWB round trip: {} {}, max err {:.3e} of the maximum (bar: one float32 ulp, "
+                  "{:.3e})".format(got.dtype, got.shape, err, np.finfo(np.float32).eps))
+            if got.shape != want.shape or not err <= np.finfo(np.float32).eps:
+                raise AssertionError("NWB round trip outside float32 rounding")
+            bitwise("NWB trialdefinition", back.trialdefinition, few.trialdefinition)
+            del back, few
+        else:
+            print("16e NWB export: not run: h5py is not installed on this machine")
+        if have_mpl:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            png = os.path.join(tmp, "coh.png")
+
+            def plot():
+                fig, _ = spt.singlepanelplot(coh, channel_i=1, channel_j=0)
+                fig.savefig(png)
+                return os.path.getsize(png)
+
+            size, _ = host_wall("singlepanelplot of the coherence to PNG", plot)
+            print("coherence PNG: {} bytes".format(size))
+        else:
+            print("16e plot: not run: matplotlib is not installed on this machine")
+        del coh, cr, loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 16 calls and oracles: {:.1f} s".format(time.perf_counter() - t_phase))
+    return summary
+
+
 def chunk_trials_for_bp():
     """Trials per chunk of the band-pass routine at the north-star shape."""
     from syncopy_tpu_torch.engine.routine import chunk_trials
@@ -2107,12 +2372,17 @@ def main():
     del data
     print("phase 15: {:.1f} s".format(time.perf_counter() - t0))
 
+    # -- 16. synthetic data through a .spy container into coherence ------ #
+    t0 = time.perf_counter()
+    synth = synth_phase(spt, taper, taper_opt)
+    print("phase 16: {:.1f} s".format(time.perf_counter() - t0))
+
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:140",
-        "launches": launches,
+        "launches": launches + synth["launches"],
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -120,7 +120,8 @@ def connectivityanalysis(
         (a warning says so otherwise). Ignored with a warning by the other
         methods.
     parallel : bool or None
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

@@ -23,7 +23,7 @@ try:
 except ImportError:  # in-memory data needs no HDF5; file-backed data does
     h5py = None
 
-from ..shared.errors import SPYError, SPYTypeError, SPYValueError, not_ported
+from ..shared.errors import SPYError, SPYTypeError, SPYValueError
 from ..shared.filetypes import FILE_EXT, extension_by_class
 from ..shared.tools import SerializableDict, StructDict
 from .util import TrialIndexer, gen_session_filename
@@ -37,10 +37,6 @@ def _h5py():
     if h5py is None:
         raise ImportError("HDF5-backed data needs the h5py package")
     return h5py
-
-
-#: where the data-object arithmetic (methods/arithmetic.py) is queued
-_ARITHMETIC_ITEM = "ROADMAP Queue 1 item 2 (datatype/methods/arithmetic.py)"
 
 __all__ = ["BaseData", "FauxTrial"]
 
@@ -566,11 +562,15 @@ class BaseData(ABC):
 
     def singlepanelplot(self, **kwargs):
         """Plot this object in a single panel (reference plotting dispatch)."""
-        raise not_ported("plotting", "ROADMAP Queue 1 item 13 (plotting/)")
+        from ..plotting.spy_plotting import singlepanelplot
+
+        return singlepanelplot(self, **kwargs)
 
     def multipanelplot(self, **kwargs):
         """Plot this object in per-channel panels (reference plotting dispatch)."""
-        raise not_ported("plotting", "ROADMAP Queue 1 item 13 (plotting/)")
+        from ..plotting.spy_plotting import multipanelplot
+
+        return multipanelplot(self, **kwargs)
 
     @property
     def trialintervals(self):
@@ -710,7 +710,9 @@ class BaseData(ABC):
 
     def save(self, container=None, tag=None, filename=None, overwrite=False):
         """Persist to a .spy container (reference io/save_spy_container.py:25)."""
-        raise not_ported("save", "ROADMAP Queue 1 item 13 (io/)")
+        from ..io.save_spy_container import save
+
+        return save(self, container=container, tag=tag, filename=filename, overwrite=overwrite)
 
     def selectdata(self, trials=None, channel=None, latency=None, frequency=None,
                    taper=None, unit=None, eventid=None, inplace=False, clear=False, **kwargs):
@@ -738,31 +740,49 @@ class BaseData(ABC):
     # ------------------------------------------------------------------ #
 
     def __add__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "+")
 
     def __radd__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "+")
 
     def __sub__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "-")
 
     def __rsub__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "-", reverse=True)
 
     def __mul__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "*")
 
     def __rmul__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "*")
 
     def __truediv__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "/")
 
     def __rtruediv__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "/", reverse=True)
 
     def __pow__(self, other):
-        raise not_ported("arithmetic", _ARITHMETIC_ITEM)
+        from .methods.arithmetic import _process_operator
+
+        return _process_operator(self, other, "**")
 
     # ------------------------------------------------------------------ #
     # repr / cleanup

@@ -7,7 +7,7 @@
 
 import numpy as np
 
-from ..shared.errors import SPYValueError, not_ported
+from ..shared.errors import SPYValueError
 from .base_data import BaseData
 from .util import TimeIndexer
 
@@ -188,7 +188,10 @@ class AnalogData(ContinuousData):
         only: the dependency-free writer always produces a fresh file and
         raises on a non-None value (pass each object its own `outpath`
         instead of appending to a pynwb ``NWBFile``)."""
-        raise not_ported("NWB export", "ROADMAP Queue 1 item 13 (io/)")
+        from ..io.nwb import _analog_to_nwb
+
+        return _analog_to_nwb(self, outpath, nwbfile=nwbfile,
+                              with_trialdefinition=with_trialdefinition, is_raw=is_raw)
 
 
 class SpectralData(ContinuousData):
@@ -409,4 +412,8 @@ class TimeLockData(ContinuousData):
         return self._get_extra_dataset("cov")
 
     def save_nwb(self, outpath, with_trialdefinition=True, is_raw=True):
-        raise not_ported("NWB export", "ROADMAP Queue 1 item 13 (io/)")
+        from ..io.nwb import _timelock_to_nwb
+
+        return _timelock_to_nwb(self, outpath,
+                                with_trialdefinition=with_trialdefinition,
+                                is_raw=is_raw)

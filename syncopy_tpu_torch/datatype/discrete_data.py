@@ -9,7 +9,7 @@
 
 import numpy as np
 
-from ..shared.errors import SPYTypeError, SPYValueError, not_ported
+from ..shared.errors import SPYTypeError, SPYValueError
 from .base_data import BaseData
 
 __all__ = ["DiscreteData", "SpikeData", "EventData"]
@@ -301,7 +301,11 @@ class SpikeData(DiscreteData):
         self._extra_datasets["waveform"] = wf
 
     def save_nwb(self, outpath, with_trialdefinition=True, unit_info=None):
-        raise not_ported("NWB export", "ROADMAP Queue 1 item 13 (io/)")
+        from ..io.nwb import _spike_to_nwb
+
+        return _spike_to_nwb(self, outpath,
+                             with_trialdefinition=with_trialdefinition,
+                             unit_info=unit_info)
 
 
 class EventData(DiscreteData):

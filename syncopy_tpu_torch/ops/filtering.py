@@ -14,7 +14,7 @@
 # Not ported: the dense-GEMM FIR and Hilbert operators and their knob
 # (_prefer_filter_gemm, _fir_conv_matrix, _hilbert_matrix,
 # filter_gemm_fingerprint, SPY_TPU_FILTER_GEMM), MXU rewrites, and
-# apply_fir_time_sharded, the mesh (ROADMAP Queue 1 item 14).
+# apply_fir_time_sharded (multi-card sharding, ROADMAP Queue 1 item 17).
 
 import functools
 

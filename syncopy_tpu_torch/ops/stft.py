@@ -8,8 +8,8 @@
 # evenly spaced centres, an index gather for explicit centres, which may
 # differ from trial to trial. The frames keep their samples on the last
 # axis, so the batched rfft runs over contiguous rows.
-# Not ported: mtmconvol_time_sharded, the multi-device layer (ROADMAP
-# Queue 1 item 14).
+# Not ported: mtmconvol_time_sharded (multi-card sharding, ROADMAP Queue
+# 1 item 17).
 
 import torch
 

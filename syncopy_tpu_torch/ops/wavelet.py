@@ -19,8 +19,9 @@
 #
 # Not ported: the direct-GEMM banks and their *_gemm_consts hooks
 # (syncopy_tpu/ops/wavelet.py:318-454; the FFT bank moves less than the
-# GEMM computes on the H100), cwt_time_sharded (the multi-device layer),
-# _gemm_fingerprint (the JAX compile cache), and the SPY_TPU_* knobs.
+# GEMM computes on the H100), cwt_time_sharded (multi-card sharding,
+# ROADMAP Queue 1 item 17), _gemm_fingerprint (the JAX compile cache), and
+# the SPY_TPU_* knobs.
 
 import functools
 import math

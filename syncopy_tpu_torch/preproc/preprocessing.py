@@ -5,8 +5,8 @@
 # Port of syncopy_tpu/preproc/preprocessing.py (parity target: reference
 # syncopy/preproc/preprocessing.py:45-411): the same validation, errors,
 # chain of steps, `nan_trials` and cfg. The routines run on the port's
-# device (set_device); `parallel` is accepted and ignored (one device,
-# ROADMAP Queue 1 item 14).
+# device (set_device); `parallel` resolves through parallel/mesh.py (one
+# device).
 
 import numpy as np
 
@@ -83,7 +83,8 @@ def preprocessing(
     keeptrials : bool
         If False, average the preprocessed trials.
     parallel : bool or None
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

@@ -3,8 +3,8 @@
 # resampledata: down-/resampling frontend.
 #
 # Port of syncopy_tpu/preproc/resampledata.py (parity target: reference
-# syncopy/preproc/resampledata.py:31-230). `parallel` is accepted and
-# ignored (one device, ROADMAP Queue 1 item 14).
+# syncopy/preproc/resampledata.py:31-230). `parallel` resolves through
+# parallel/mesh.py (one device).
 
 import fractions
 
@@ -60,7 +60,8 @@ def resampledata(
     keeptrials : bool
         If False, average the resampled trials.
     parallel : bool or None
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

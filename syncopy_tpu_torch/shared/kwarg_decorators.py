@@ -167,26 +167,28 @@ def unwrap_select(func):
 
 def detect_parallel_client(func):
     """
-    Validate the ``parallel`` keyword at the frontend boundary and pass it
-    through unchanged; the actual detection happens later, in
-    :func:`~syncopy_tpu.parallel.mesh.resolve_parallel`, once the engine
-    runs: ``None`` picks up the process-global active mesh (the analog of
-    the reference detecting a running Dask client), ``True`` builds a mesh
-    over all visible devices (warns and degrades when only one device
-    exists), ``False`` forces single-device execution.
+    Validate the ``parallel`` keyword at the frontend boundary and resolve
+    it with :func:`~syncopy_tpu_torch.parallel.mesh.resolve_parallel`:
+    ``None`` picks up the process-global active mesh (the analog of the
+    reference detecting a running Dask client), ``True`` builds a mesh over
+    all visible devices (warns and runs on one device when only one
+    exists), ``False`` forces one device. The port runs on one device, so
+    a mesh of one device computes what ``None`` does; a mesh over more
+    devices raises NotImplementedError where it is built.
 
-    Reference kwarg_decorators.py:415-584 (there, the decorator itself
-    queries the Dask runtime; here mesh state is cheap process-global
-    state, so resolution is deferred to compute time).
+    Reference kwarg_decorators.py:415-584.
     """
 
     @functools.wraps(func)
     def wrapper_parallel(*args, **kwargs):
+        from ..parallel.mesh import resolve_parallel
+
         parallel = kwargs.get("parallel", None)
         if parallel not in (None, True, False):
             raise SPYValueError(
                 legal="`parallel` to be None, True or False", varname="parallel", actual=str(parallel)
             )
+        resolve_parallel(parallel)
         return func(*args, **kwargs)
 
     return wrapper_parallel

@@ -5,8 +5,8 @@
 # Port of syncopy_tpu/specest/freqanalysis.py (parity target: reference
 # syncopy/specest/freqanalysis.py:62-1064). Methods: mtmfft, mtmconvol,
 # wavelet, superlet, welch (+ FOOOF outputs). The routines run on the
-# port's device (set_device); `parallel` and `chan_per_worker` are
-# accepted and ignored (one device, ROADMAP Queue 1 item 14).
+# port's device (set_device); `parallel` resolves through
+# parallel/mesh.py (one device), `chan_per_worker` is accepted and ignored.
 
 import numpy as np
 
@@ -141,7 +141,8 @@ def freqanalysis(
         mtmfft: detrend, taper and FFT in float64, rounded to complex64 at
         the end (spectra for Granger; no limit on the trial length).
     parallel, chan_per_worker
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

@@ -6,7 +6,7 @@
 # (parity target: reference syncopy/statistics/spike_psth.py:37-248); host
 # numpy on the port's SpikeData. Like every entry point of the port it
 # checks the device setting first (no card and no set_device("cpu")
-# raises). `parallel` is accepted and ignored.
+# raises). `parallel` resolves through parallel/mesh.py.
 
 import numpy as np
 
@@ -61,7 +61,8 @@ def spike_psth(
         Keep per-trial histograms (the trial average/variance land in the
         ``avg``/``var`` datasets either way).
     parallel : bool or None
-        Accepted for API parity and ignored: the histograms run on the host.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

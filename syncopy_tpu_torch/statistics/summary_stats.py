@@ -36,7 +36,8 @@ def mean(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
         For dimension statistics: keep per-trial results (ignored for
         dim="trials").
     parallel : bool or None
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------
@@ -97,7 +98,8 @@ def itc(spec_data, parallel=None, **kwargs):
     spec_data : :class:`~syncopy_tpu_torch.SpectralData`
         Complex spectra (``output="fourier"``, trials kept).
     parallel : bool or None
-        Accepted for API parity and ignored.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

@@ -7,7 +7,7 @@
 # reference syncopy/statistics/timelockanalysis.py:37-264): streamed
 # engine passes for the trial mean, the exact two-pass variance, the
 # batched covariance and, for keeptrials, a chunked identity copy.
-# `parallel` is accepted and ignored (one device, ROADMAP Queue 1 item 14).
+# `parallel` resolves through parallel/mesh.py (one device).
 
 import numpy as np
 
@@ -77,7 +77,8 @@ def timelockanalysis(
         Keep the time-locked single trials in the primary dataset
         (``avg``/``var`` are computed either way).
     parallel : bool or None
-        Accepted for API parity and ignored: the engine runs on one device.
+        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
+        device, a mesh over more raises NotImplementedError.
 
     Returns
     -------

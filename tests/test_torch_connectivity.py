@@ -248,11 +248,23 @@ def test_coherence_rejects_keeptrials_and_single_trial():
 
 
 def test_data_methods_outside_the_slice_not_ported_yet(tmp_path):
-    pdata, _ = _both([100, 150], 3)
-    for call in (lambda: pdata + 1, lambda: pdata.save(str(tmp_path / "x")),
-                 lambda: pdata.singlepanelplot(), lambda: pdata.save_nwb(str(tmp_path / "x.nwb"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            call()
+    """The data methods that once raised here are ported (arithmetic,
+    save, plotting, NWB export; tests/test_torch_io.py and its siblings
+    hold them to the JAX package); what is still not ported, a mesh over
+    more than one device, raises naming its ROADMAP item."""
+    import matplotlib.pyplot as plt
+
+    pdata, jdata = _both([100, 150], 3)
+    np.testing.assert_array_equal((pdata + 1).data, (jdata + 1).data)
+    pdata.save(str(tmp_path / "x"))
+    assert os.path.isfile(str(tmp_path / "x.spy" / "x.analog"))
+    fig, _ = pdata.singlepanelplot(trials=0)
+    plt.close(fig)
+    pdata.save_nwb(str(tmp_path / "x.nwb"))
+    assert os.path.isfile(str(tmp_path / "x.nwb"))
+    pdata._close_hdf()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+        spt.make_mesh(devices=["cpu", "cpu"])
 
 
 def test_from_arrays_builds_the_same_object():
@@ -270,6 +282,12 @@ def test_from_arrays_builds_the_same_object():
     "syncopy_tpu_torch.connectivity.AV_compRoutines",
     "syncopy_tpu_torch.specest",
     "syncopy_tpu_torch.ops.wavelet",
+    "syncopy_tpu_torch.io",
+    "syncopy_tpu_torch.plotting",
+    "syncopy_tpu_torch.synthdata",
+    "syncopy_tpu_torch.parallel",
+    "syncopy_tpu_torch.shared.profiling",
+    "syncopy_tpu_torch.datatype.methods.arithmetic",
 ])
 def test_import_pulls_in_no_jax(module):
     code = ("import sys, " + module + "; "

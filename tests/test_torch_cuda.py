@@ -3,7 +3,9 @@
 # PPC resultant, Butterworth cascade) against oracles and their plain
 # versions, and the coherence, PPC, Granger, jackknife, corr,
 # trial-statistics, freqanalysis, preprocessing and resampling paths on
-# the card against the same paths on the CPU. They skip where no CUDA
+# the card against the same paths on the CPU; the device AR(2) generator
+# against float64, and a .spy round trip of a coherence computed through
+# the kernel (where h5py is installed). They skip where no CUDA
 # device is present (the kernels have no CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -724,3 +726,65 @@ def test_preprocessing_on_card_matches_cpu(cuda_device, monkeypatch, func, kw):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     assert np.array_equal(out.trialdefinition, ref.trialdefinition)
     assert out.info == ref.info
+
+
+def _ar2_f64(noise, m1, alpha2):
+    """The AR(2) recursion of `noise` in float64."""
+    x = noise.double()
+    out = torch.empty_like(x)
+    out[:, :2] = x[:, :2]
+    m1t = m1.double().T
+    for t in range(2, x.shape[1]):
+        out[:, t] = out[:, t - 1] @ m1t + alpha2 * out[:, t - 2] + x[:, t]
+    return out
+
+
+@pytest.mark.cuda
+def test_ar2_network_device_on_card_matches_float64(cuda_device):
+    """The generator's output on the card against a float64 recursion of
+    the same noise (its torch.Generator drawn again), 1e-5 of the
+    maximum; the same seed gives the same bits."""
+    from syncopy_tpu_torch.synthdata.analog import ar2_network_device
+
+    adj = np.zeros((8, 8), np.float32)
+    adj[1, 0] = 0.25
+    previous = spt.set_device(cuda_device)
+    try:
+        got = ar2_network_device(64, AdjMat=adj, nSamples=300, seed=7)
+        again = ar2_network_device(64, AdjMat=adj, nSamples=300, seed=7)
+    finally:
+        spt.set_device(previous)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    noise = torch.randn((64, 300, 8), generator=gen, dtype=torch.float32, device=cuda_device)
+    m1 = torch.from_numpy(np.diag(np.full(8, 0.55, np.float32)) + adj.T).to(cuda_device)
+    want = _ar2_f64(noise, m1, -0.8)
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_coherence_through_the_kernel_round_trips_a_container(cuda_device, tmp_path):
+    """A coherence computed through the CSD kernel, saved and loaded:
+    bitwise; and the coherence of the loaded AnalogData container equals
+    that of the in-memory one bitwise (one chunk, the same kernel)."""
+    pytest.importorskip("h5py", reason="the .spy container is HDF5")
+    adata = _ragged_analog(31)
+    previous = spt.set_device(cuda_device)
+    try:
+        ck.csd_accumulate_tiled.launches = 0
+        coh = spt.connectivityanalysis(adata, method="coh", tapsmofrq=4)
+        assert ck.csd_accumulate_tiled.launches >= 1
+        spt.save(adata, filename=str(tmp_path / "raw"))
+        loaded = spt.load(str(tmp_path / "raw.analog"), checksum=True)
+        again = spt.connectivityanalysis(loaded, method="coh", tapsmofrq=4)
+    finally:
+        spt.set_device(previous)
+    want = np.asarray(coh.data)
+    np.testing.assert_array_equal(np.asarray(again.data), want)
+    spt.save(coh, filename=str(tmp_path / "coh"))
+    back = spt.load(str(tmp_path / "coh.crossspectral"), checksum=True)
+    got = np.asarray(back.data)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert np.array_equal(back.freq, coh.freq)
