@@ -117,6 +117,26 @@ Phases, each of which raises on failure (non-zero exit):
    (within one float32 ulp) and a PNG of the coherence under Agg. b and e
    need h5py and e matplotlib: where the machine lacks them, those steps
    print that they were not run, and c and d take the in-memory object.
+17. the engine extras on phase 6's data, both routes of each in this run;
+   prints the resident budget, the trial store's and the host budget, and
+   whether phase 9's CSD stack goes resident. a: BASELINE config #5's
+   chain (band-pass 30-100 Hz order 4, resampledata to 250 Hz, coherence
+   with tapsmofrq=2) with its intermediates resident: both stay
+   unmaterialized, the Butterworth and CSD kernels launch once a chunk,
+   the engine counts one upload of the input and only the coherence read
+   back, the coherence within 1e-5 of phase 15c's float64 chain and
+   bitwise equal to the chain with residency off (the resident budget at
+   0) where the consumers ran the host route's chunks, else within 1e-6;
+   the chunk plans, the warm walls of both routes (median of 3) and the
+   cost of reading the two intermediates back afterwards. b: the device
+   trial store: timelockanalysis with covariance of the band-passed data
+   (phase 15e's call) and phase 6's coherence, cold (store emptied) and
+   cached, walls and bytes uploaded (0 when cached), results bitwise
+   equal. c: fetch_trial_view of a resident Morlet TFR (phase 14's call)
+   at max_time 1024 and 128 against the host box average of the
+   read-back trial (1e-5 of its maximum), its time and bytes against the
+   whole readback's. d: the HDF5 spill of a result over a lowered host
+   budget, where h5py is installed (else "not run").
 Phases 9 to 16 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
 these paths run no CUDA kernel of the port. Phases 12 to 15 also print
@@ -124,14 +144,22 @@ trials/s, the bytes read back with their copy time, and a stage split
 (gather, pad and upload; compute; readback) replayed with a synchronize
 after each step.
 
+Results that stay on the card (engine/resident.py) are read back inside
+every timed call of phases 6 to 16, which also empty the trial store
+before each call and at each phase boundary: their walls time host data
+in and host data out, as they did before the engine kept data on the
+card; the resident-only wall, before the readback, is printed beside
+them.
+
 Each main path runs with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with each
 kernel's launches (csd_accumulate is on no path of the port: the JAX
 package calls it only from its Pallas probe), error, times and bound (the
 least time the card could take: operations over the FP32 peak, FP64 for
 the Butterworth cascade, against bytes over the HBM rate, from this run's
-shapes); the Granger path launches none of them. The last line is ``{"ok": true, "device":
-{...}}``. TF32 stays off throughout, asserted.
+shapes); the Granger path launches none of them. The launches count
+phase 6's, 7's, 15's, 16's and 17a's main paths. The last line is
+``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
 
     python3 chip_smoke.py --save-csd DIR
 
@@ -827,16 +855,45 @@ def read_launches(name, expect=None):
     return launches
 
 
+def settle(res):
+    """Read back every device-resident payload among `res` (a data object
+    or a tuple of them), as the engine without residency returns it; the
+    number of payloads read back."""
+    from syncopy_tpu_torch.engine.resident import DeferredArray
+
+    n = 0
+    for obj in res if isinstance(res, tuple) else (res,):
+        if isinstance(getattr(obj, "_data", None), DeferredArray):
+            obj._data._ensure()
+            n += 1
+    return n
+
+
+def clear_store():
+    """Empty the device trial store (reading any live resident result
+    back) and the allocator's cache: the next call uploads its input as
+    the engine without the store did."""
+    import torch
+
+    from syncopy_tpu_torch.engine.routine import clear_device_cache
+
+    clear_device_cache()
+    torch.cuda.empty_cache()
+
+
 def measured_call(name, fn, expect=None):
-    """One checked call of `fn` with the launch counters at 0, peak device
-    memory and peak host RSS reset before it; the launches must be those
-    of `expect` (see read_launches). Returns its result and (wall s, peak
-    device GB, peak host GB)."""
+    """One checked call of `fn` with the trial store empty, the launch
+    counters at 0, peak device memory and peak host RSS reset before it;
+    the launches must be those of `expect` (see read_launches). A
+    device-resident result is read back inside the timed call; the wall
+    before that readback is printed beside it. Returns its result and
+    (wall s, peak device GB, peak host GB)."""
     import torch
 
     import gc
 
     gc.collect()  # what earlier phases left in reference cycles
+    clear_store()
     zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -844,28 +901,42 @@ def measured_call(name, fn, expect=None):
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
+        resident_wall = time.perf_counter() - t0
+        n_resident = settle(res)
         wall = time.perf_counter() - t0
     read_launches(name, expect)
     dev_gb = torch.cuda.max_memory_allocated() / 1e9
-    print("{}: first call {:.3f} s; peak device memory {:.3f} GB; peak host RSS {:.3f} GB{}".format(
-        name, wall, dev_gb, host.gb, " (since the process started)" if host.since_start
-        else " ({:.3f} GB resident before the call)".format(host.start_gb)))
+    print("{}: first call {:.3f} s{}; peak device memory {:.3f} GB; peak host RSS {:.3f} GB{}".format(
+        name, wall, " (resident-only {:.3f} s, then read back)".format(resident_wall)
+        if n_resident else "", dev_gb, host.gb, " (since the process started)"
+        if host.since_start else " ({:.3f} GB resident before the call)".format(host.start_gb)))
     return res, (wall, dev_gb, host.gb)
 
 
-def warm_wall(name, fn, reps=1):
-    """Host-clock seconds of `reps` more calls of `fn`, synchronized."""
+def warm_wall(name, fn, reps=1, clear=True):
+    """Host-clock seconds of `reps` more calls of `fn`, synchronized, each
+    after emptying the trial store (unless not `clear`) and including the
+    readback of a device-resident result; the resident-only walls, to the
+    end of the call before that readback, are printed beside them."""
     import torch
 
-    walls = []
+    walls, resident_walls = [], []
     for _ in range(reps):
+        if clear:
+            clear_store()
         t0 = time.perf_counter()
-        fn()
+        res = fn()
         torch.cuda.synchronize()
+        resident_walls.append(time.perf_counter() - t0)
+        n_resident = settle(res)
         walls.append(time.perf_counter() - t0)
+        del res
     wall = statistics.median(walls)
-    print("{} warm wall: median {:.4f} s of {} ({})".format(
-        name, wall, reps, ", ".join("{:.4f}".format(w) for w in walls)))
+    print("{} warm wall: median {:.4f} s of {} ({}){}".format(
+        name, wall, reps, ", ".join("{:.4f}".format(w) for w in walls),
+        "; resident-only wall, before the readback: median {:.4f} s ({})".format(
+            statistics.median(resident_walls), ", ".join(
+                "{:.4f}".format(w) for w in resident_walls)) if n_resident else ""))
     return wall
 
 
@@ -1133,6 +1204,13 @@ def engine_stages(cr, adata):
     readback to the host. Returns (ms by stage, bytes read back)."""
     import torch
 
+    from syncopy_tpu_torch.engine.resident import DeferredArray
+
+    if isinstance(adata._data, DeferredArray):
+        # the replay takes the host route: the input read back, and the
+        # vectorized gather plan the engine builds for it
+        adata._data._ensure()
+        cr._fast_plan = cr._plan_fast_gather(adata)
     ms, nbytes, acc = {}, 0, None
 
     def timed(key, fn):
@@ -1779,7 +1857,7 @@ def preproc_phase(spt, data, trl, kernel_ms):
     coh_wall = warm_wall("coh of the resampled data", lambda: spt.connectivityanalysis(
         rs, method="coh", tapsmofrq=2), reps=3)
     summary["chain"] = {"err": chain_err, "coh_first": coh_first, "coh_wall": coh_wall,
-                        "csd_launches": coh_chunks}
+                        "csd_launches": coh_chunks, "coh64": coh64}
     del coh, rs
 
     def check_downsample(out):
@@ -2090,6 +2168,291 @@ def synth_phase(spt, taper, taper_opt):
     return summary
 
 
+#: phase 17's bars: a chain whose consumer splits the producer's records
+#: against the host route's chain (the fused trial sum runs in another
+#: order; absolute, on the coherence), and the plot view against the host
+#: box average of the read-back trial (relative to the view's maximum)
+SPLIT_ABS_TOL = 1e-6
+VIEW_REL_TOL = 1e-5
+#: phase 17a/b: timed calls of each route
+EXTRAS_REPS = 3
+
+
+def plan_text(cr):
+    """One routine's chunk plan: per bucket, where its chunks came from,
+    the chunk size and the valid rows of each chunk."""
+    return "; ".join("{} {}: chunk {}, rows {}".format(
+        cr.__class__.__name__, p["source"], p["chunk"], p["rows"]) for p in cr.chunk_plan)
+
+
+def transfer_text(counts):
+    return ("host-to-device {h2d} B (auxiliary inputs {h2d_aux} B), device-to-host {d2h} B "
+            "(per-trial info {d2h_aux} B)".format(**counts))
+
+
+def extras_phase(spt, data, trl, coh64):
+    """Phase 17: the engine extras on the north-star data, each route
+    measured in this run. a: BASELINE config #5's chain (band-pass,
+    resample to 250 Hz, coherence) with its intermediates resident against
+    the same chain with residency off; b: the trial store (timelockanalysis
+    with covariance and phase 6's coherence, cold and cached); c: the plot
+    view of a resident Morlet TFR; d: the HDF5 spill where h5py is
+    installed. Returns the kernel launches of a's resident chain."""
+    import gc
+
+    import torch
+
+    from syncopy_tpu_torch.engine import resident, routine
+    from syncopy_tpu_torch.engine.resident import DeferredArray
+    from syncopy_tpu_torch.engine.routine import ComputationalRoutine
+
+    t_phase = time.perf_counter()
+    stack_gb = JACK_COH_TRIALS * 501 * N_CHANNELS * N_CHANNELS * 8 / 1e9
+    print("phase 17: resident budget {} B ({:.3f} GiB), trial store {} B ({:.3f} GiB), host "
+          "budget {} B ({:.3f} GiB); phase 9's single-trial CSD stack ({} trials, {:.3f} GB) "
+          "{} resident".format(
+              resident.RESIDENT_BUDGET, resident.RESIDENT_BUDGET / 2**30,
+              routine.DEVICE_CACHE_BYTES, routine.DEVICE_CACHE_BYTES / 2**30,
+              routine.DEFAULT_HOST_BUDGET, routine.DEFAULT_HOST_BUDGET / 2**30,
+              JACK_COH_TRIALS, stack_gb,
+              "goes" if stack_gb * 1e9 <= resident.RESIDENT_BUDGET else "does not go"))
+    adata = spt.from_arrays(data, trl, FS)
+    input_bytes = data.nbytes
+
+    # -- a. the chain, resident and with residency off
+    def chain():
+        bp = spt.preprocessing(adata, filter_class="but", filter_type="bp", freq=[30, 100],
+                               order=4)
+        rs = spt.resampledata(bp, resamplefs=250)
+        return bp, rs, spt.connectivityanalysis(rs, method="coh", tapsmofrq=2)
+
+    def checked_chain(route):
+        """One call of the chain with the store empty and the counters at
+        0: its outputs, routines (band-pass, resample, cross spectra),
+        launches and transfers."""
+        routines, initialize = [], ComputationalRoutine.initialize
+
+        def keep(self, *args, **kwargs):
+            routines.append(self)
+            return initialize(self, *args, **kwargs)
+
+        gc.collect()
+        clear_store()
+        zero_launches()
+        routine.reset_transfer_counts()
+        ComputationalRoutine.initialize = keep
+        try:
+            out = chain()
+            torch.cuda.synchronize()
+        finally:
+            ComputationalRoutine.initialize = initialize
+        counts = routine.transfer_counts()
+        bp_cr, rs_cr, coh_cr = routines
+        expect = {"sosfiltfilt": len(bp_cr.chunk_plan[0]["rows"]),
+                  "csd_accumulate_tiled": len(coh_cr.chunk_plan[0]["rows"])}
+        launches = read_launches("17a chain, " + route, expect)
+        print("17a chain, {}: {}".format(route, transfer_text(counts)))
+        for cr in routines:
+            print("17a chain, {}: {}".format(route, plan_text(cr)))
+        return out, routines, launches, counts
+
+    (bp, rs, coh), crs, launches, counts = checked_chain("resident")
+    for name, obj in (("band-passed", bp), ("resampled", rs)):
+        if not isinstance(obj._data, DeferredArray) or obj._device_resident.materialized:
+            raise AssertionError("17a: the {} data was read back".format(name))
+    if [cr.chunk_plan[0]["source"] for cr in crs] != ["upload", "resident", "resident"]:
+        raise AssertionError("17a: the chain did not consume its resident records")
+    bp_chunks = crs[0].chunk_plan[0]
+    one_upload = len(bp_chunks["rows"]) * bp_chunks["chunk"] * N_SAMPLES * N_CHANNELS * 4
+    if counts["h2d"] != one_upload or counts["h2d_aux"] or counts["d2h"] != coh.data.nbytes:
+        raise AssertionError("17a: transfers {}; expected one upload of {} B and {} B of "
+                             "coherence back".format(counts, one_upload, coh.data.nbytes))
+    print("17a: one upload of the {} B input ({} B with the chunk's padding rows), {} B of "
+          "coherence back; intermediates still on the card".format(
+              input_bytes, one_upload, coh.data.nbytes))
+    got = np.asarray(coh.data)[0]
+    err = float(np.abs(got - coh64).max())
+    print("17a: resident chain's coherence against the float64 chain: max abs err "
+          "{:.3e}".format(err))
+    if not err < COH_ABS_TOL:
+        raise AssertionError("17a: coherence err {:.3e} >= {}".format(err, COH_ABS_TOL))
+    t0 = time.perf_counter()
+    bp_host = np.asarray(bp.data)
+    bp_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rs_host = np.asarray(rs.data)
+    rs_ms = 1e3 * (time.perf_counter() - t0)
+    print("17a: reading the intermediates back afterwards: band-passed {} B in {:.3f} ms "
+          "({:.3f} GB/s), resampled {} B in {:.3f} ms ({:.3f} GB/s)".format(
+              bp_host.nbytes, bp_ms, bp_host.nbytes / 1e6 / bp_ms, rs_host.nbytes, rs_ms,
+              rs_host.nbytes / 1e6 / rs_ms))
+    del bp, rs, coh
+
+    saved_budget = resident.RESIDENT_BUDGET
+    resident.RESIDENT_BUDGET = 0
+    try:
+        (bp_off, rs_off, coh_off), crs_off, _, counts_off = checked_chain("residency off")
+    finally:
+        resident.RESIDENT_BUDGET = saved_budget
+    # the consumers ran the host route's chunks: bitwise; else they split
+    # the producers' records and sum in another order
+    unsplit = all([(p["chunk"], p["rows"]) for p in a.chunk_plan]
+                  == [(p["chunk"], p["rows"]) for p in b.chunk_plan]
+                  for a, b in zip(crs[1:], crs_off[1:]))
+    same = [np.array_equal(a, b) for a, b in (
+        (bp_host, np.asarray(bp_off.data)), (rs_host, np.asarray(rs_off.data)),
+        (got, np.asarray(coh_off.data)[0]))]
+    diff = float(np.abs(got - np.asarray(coh_off.data)[0]).max())
+    print("17a: against the residency-off chain: band-passed, resampled, coherence bitwise "
+          "equal {}; coherence max abs diff {:.3e}; the consumers {} the producers' "
+          "records".format(same, diff, "took unsplit" if unsplit else "split"))
+    if unsplit and not all(same):
+        raise AssertionError("17a: the resident chain is not bitwise equal to the host route")
+    if not unsplit and not (same[0] and diff <= SPLIT_ABS_TOL):
+        raise AssertionError("17a: split chain differs by {:.3e} > {}".format(
+            diff, SPLIT_ABS_TOL))
+    del bp_off, rs_off, coh_off, rs_host
+
+    walls = {"resident": [], "residency off": []}
+    for _ in range(EXTRAS_REPS):
+        for route in walls:
+            gc.collect()
+            clear_store()
+            resident.RESIDENT_BUDGET = saved_budget if route == "resident" else 0
+            try:
+                t0 = time.perf_counter()
+                out = chain()
+                torch.cuda.synchronize()
+                walls[route].append(time.perf_counter() - t0)
+            finally:
+                resident.RESIDENT_BUDGET = saved_budget
+            del out
+    summary = {"iir_launches": launches["sosfiltfilt"],
+               "csd_launches": launches["csd_accumulate_tiled"], "chain_err": err}
+    for route, ws in walls.items():
+        summary[route] = statistics.median(ws)
+        print("17a chain warm wall, {}: median {:.4f} s of {} ({})".format(
+            route, statistics.median(ws), len(ws), ", ".join("{:.4f}".format(w) for w in ws)))
+    clear_store()
+
+    # -- b. the trial store
+    bp_host = spt.from_arrays(bp_host, trl, FS)
+    for name, call in (
+            ("timelockanalysis covariance (phase 15e's call)",
+             lambda: spt.timelockanalysis(bp_host, covariance=True)),
+            ("coh (phase 6's call)",
+             lambda: spt.connectivityanalysis(adata, method="coh", tapsmofrq=2))):
+        clear_store()
+        results = {}
+        for kind in ("cold", "cached"):
+            ws, uploads = [], []
+            for _ in range(EXTRAS_REPS):
+                if kind == "cold":
+                    clear_store()
+                routine.reset_transfer_counts()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                ws.append(time.perf_counter() - t0)
+                counts = routine.transfer_counts()
+                uploads.append(counts["h2d"])
+                results.setdefault(kind, out)
+            print("17b {} {}: median {:.4f} s of {} ({}); payload uploaded {} B a call, "
+                  "auxiliary inputs {} B".format(
+                      name, kind, statistics.median(ws), len(ws),
+                      ", ".join("{:.4f}".format(w) for w in ws), uploads, counts["h2d_aux"]))
+            summary["{} {}".format(name.split()[0], kind)] = statistics.median(ws)
+            if kind == "cached" and any(uploads):
+                raise AssertionError("17b: the cached {} uploaded {} B".format(name, uploads))
+        a, b = results["cold"], results["cached"]
+        pairs = ([(a.avg, b.avg), (a.var, b.var), (a.cov, b.cov)] if hasattr(a, "avg")
+                 else [(a.data, b.data)])
+        if not all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in pairs):
+            raise AssertionError("17b: the cached {} differs from the cold one".format(name))
+        del results, a, b, out
+    del bp_host
+    clear_store()
+
+    # -- c. the plot view of a resident Morlet TFR (phase 14's call)
+    wdata = spt.from_arrays(data[: WAVELET_TRIALS * N_SAMPLES], trl[:WAVELET_TRIALS], FS)
+    tf_walls = []
+    for _ in range(EXTRAS_REPS):
+        tf = None
+        clear_store()
+        t0 = time.perf_counter()
+        tf = spt.freqanalysis(wdata, method="wavelet", foi=np.linspace(10, 150, 30),
+                              toi="all", output="pow")
+        torch.cuda.synchronize()
+        tf_walls.append(time.perf_counter() - t0)
+    tf_wall = statistics.median(tf_walls)
+    res = tf._device_resident
+    if res is None or res.materialized:
+        raise AssertionError("17c: the TFR did not stay on the card")
+    views, view_ms = [], []
+    for pos, max_time in ((0, 1024), (WAVELET_TRIALS - 1, 1024), (7, 128)):
+        routine.reset_transfer_counts()
+        t0 = time.perf_counter()
+        view, factor = res.fetch_trial_view(pos, max_time=max_time)
+        ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = routine.transfer_counts()["d2h"]
+        views.append((pos, factor, view))
+        view_ms.append(ms)
+        print("17c view of trial {} at max_time {}: factor {}, shape {}, {} B back in {:.3f} "
+              "ms".format(pos, max_time, factor, view.shape, nbytes, ms))
+    routine.reset_transfer_counts()
+    t0 = time.perf_counter()
+    full = np.asarray(tf.data)
+    full_ms = 1e3 * (time.perf_counter() - t0)
+    print("17c: the TFR call resident-only median {:.4f} s of {} ({}); reading all of it back "
+          "{} B in {:.3f} ms ({:.3f} GB/s)".format(
+              tf_wall, len(tf_walls), ", ".join("{:.4f}".format(w) for w in tf_walls),
+              routine.transfer_counts()["d2h"], full_ms, full.nbytes / 1e6 / full_ms))
+    for pos, factor, view in views:
+        trial = full[pos * N_SAMPLES : (pos + 1) * N_SAMPLES]
+        t_out = N_SAMPLES // factor
+        want = trial[: t_out * factor].reshape((t_out, factor) + trial.shape[1:]).mean(axis=1)
+        verr = float(np.abs(view - want).max() / np.abs(want).max())
+        print("17c view of trial {} against the host box average of the read-back trial: max "
+              "err {:.3e} of its maximum".format(pos, verr))
+        if not verr < VIEW_REL_TOL:
+            raise AssertionError("17c: view err {:.3e} >= {}".format(verr, VIEW_REL_TOL))
+    summary["view_ms"], summary["full_readback_ms"] = view_ms[0], full_ms
+    del tf, res, full, wdata
+    clear_store()
+
+    # -- d. the HDF5 spill
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    if h5py is None:
+        print("17d: the HDF5 spill: not run on this machine (no h5py); "
+              "tests/test_torch_streaming.py holds it on the CPU")
+    else:
+        few = 64
+        mini = spt.from_arrays(data[: few * N_SAMPLES], trl[:few], FS)
+        ref = np.asarray(spt.preprocessing(mini, filter_class="but", filter_type="bp",
+                                           freq=[30, 100], order=4).data)
+        saved_host = routine.DEFAULT_HOST_BUDGET
+        routine.DEFAULT_HOST_BUDGET = ref.nbytes // 2
+        try:
+            out = spt.preprocessing(mini, filter_class="but", filter_type="bp",
+                                    freq=[30, 100], order=4)
+            t0 = time.perf_counter()
+            spilled = out.data[()]
+            spill_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            routine.DEFAULT_HOST_BUDGET = saved_host
+        if not isinstance(out.data, h5py.Dataset) or not np.array_equal(spilled, ref):
+            raise AssertionError("17d: the spill did not land in HDF5, or differs")
+        print("17d: a {} B band-passed result over a host budget of half its size, read back "
+              "into an HDF5 dataset: bitwise; reading the dataset {:.3f} ms".format(
+                  ref.nbytes, spill_ms))
+        del out, mini
+    print("phase 17 calls and oracles: {:.1f} s".format(time.perf_counter() - t_phase))
+    return summary
+
+
 def chunk_trials_for_bp():
     """Trials per chunk of the band-pass routine at the north-star shape."""
     from syncopy_tpu_torch.engine.routine import chunk_trials
@@ -2248,6 +2611,7 @@ def main():
     trl[:, 1] = trl[:, 0] + N_SAMPLES
     adata = spt.from_arrays(data, trl, FS)
 
+    clear_store()
     zero_launches()
     coh = spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
     torch.cuda.synchronize()
@@ -2274,6 +2638,7 @@ def main():
 
     walls = []
     for _ in range(5):
+        clear_store()  # every timed call uploads its input
         t0 = time.perf_counter()
         spt.connectivityanalysis(adata, method="coh", tapsmofrq=2)
         torch.cuda.synchronize()
@@ -2297,6 +2662,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 7. ppc main path ------------------------------------------------- #
+    clear_store()
     zero_launches()
     ppc = spt.connectivityanalysis(adata, method="ppc", tapsmofrq=2)
     torch.cuda.synchronize()
@@ -2322,6 +2688,7 @@ def main():
 
     walls = []
     for _ in range(5):
+        clear_store()  # every timed call uploads its input
         t0 = time.perf_counter()
         spt.connectivityanalysis(adata, method="ppc", tapsmofrq=2)
         torch.cuda.synchronize()
@@ -2346,43 +2713,59 @@ def main():
 
     # -- 8. granger main path --------------------------------------------- #
     for n_chan, oracle in ((N_CHANNELS, True), (2 * N_CHANNELS, False)):
+        clear_store()
         granger_phase(spt, n_chan, oracle, args.save_csd if n_chan == N_CHANNELS else None)
 
     # -- 9. coh jackknife --------------------------------------------------- #
+    clear_store()
     coh_jackknife_phase(spt, taper, taper_opt, min(args.jackknife_trials, N_TRIALS))
 
     # -- 10. granger jackknife ---------------------------------------------- #
+    clear_store()
     granger_jackknife_phase(spt)
 
     # -- 11. corr ------------------------------------------------------------ #
+    clear_store()
     corr_phase(spt)
 
     # -- 12 to 14. freqanalysis ---------------------------------------------- #
     t0 = time.perf_counter()
     data, trl = north_star_data()
+    clear_store()
     mtmfft_phase(spt, data, trl, taper, taper_opt, np.asarray(coh.data)[0])
+    clear_store()
     stft_phase(spt, data, trl)
+    clear_store()
     wavelet_phase(spt, data, trl)
     print("phases 12 to 14: {:.1f} s".format(time.perf_counter() - t0))
 
     # -- 15. preprocessing ---------------------------------------------------- #
     t0 = time.perf_counter()
+    clear_store()
     iir = iir_kernel_checks(ik, fb, data)
     preproc = preproc_phase(spt, data, trl, iir["ms"])
-    del data
     print("phase 15: {:.1f} s".format(time.perf_counter() - t0))
 
     # -- 16. synthetic data through a .spy container into coherence ------ #
     t0 = time.perf_counter()
+    clear_store()
     synth = synth_phase(spt, taper, taper_opt)
     print("phase 16: {:.1f} s".format(time.perf_counter() - t0))
+
+    # -- 17. the engine extras: resident chain, trial store, plot view --- #
+    t0 = time.perf_counter()
+    clear_store()
+    extras = extras_phase(spt, data, trl, preproc["chain"]["coh64"])
+    del data
+    clear_store()
+    print("phase 17: {:.1f} s".format(time.perf_counter() - t0))
 
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:140",
-        "launches": launches + synth["launches"],
+        "launches": launches + synth["launches"] + extras["csd_launches"],
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2419,7 +2802,7 @@ def main():
         "source": "syncopy_tpu_torch/csrc/sosfilt.cu",
         "replaces": "syncopy_tpu/ops/filtering.py:181 (_biquad, lax.associative_scan; no "
                     "pallas_call)",
-        "launches": preproc["launches"],
+        "launches": preproc["launches"] + extras["iir_launches"],
         "max_abs_err": iir["max_abs_err"],
         "ms": iir["ms"],
         "plain_ms": iir["plain_ms"],

@@ -54,7 +54,7 @@ from .datatype import (  # noqa: E402
     selectdata,
     show,
 )
-from .engine.routine import ComputationalRoutine, set_device  # noqa: E402
+from .engine.routine import ComputationalRoutine, clear_device_cache, set_device  # noqa: E402
 from .parallel.mesh import (  # noqa: E402,F401
     make_mesh,
     use_mesh,
@@ -150,6 +150,7 @@ __all__ = [
     "Timer",
     "from_arrays",
     "set_device",
+    "clear_device_cache",
 ]
 
 

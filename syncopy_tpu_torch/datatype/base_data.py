@@ -804,9 +804,14 @@ class BaseData(ABC):
             if hasattr(self, name) and getattr(self, name) is not None:
                 attrs.append("{}: {}".format(name, getattr(self, name)))
         lines.extend(attrs)
-        storage = "in-memory" if isinstance(self._data, np.ndarray) else (
-            "hdf5: {}".format(self._filename) if self._data is not None else "no data"
-        )
+        from ..engine.resident import DeferredArray
+
+        if isinstance(self._data, DeferredArray):
+            storage = "device-resident (read back on first element access)"
+        elif isinstance(self._data, np.ndarray):
+            storage = "in-memory"
+        else:
+            storage = "hdf5: {}".format(self._filename) if self._data is not None else "no data"
         lines.append("storage: {}".format(storage))
         return "\n".join(lines)
 

@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 #
-# ComputationalRoutine: the compute engine (main-path subset).
+# ComputationalRoutine: the compute engine.
 #
 # Port of syncopy_tpu/engine/routine.py. What carries over:
 #   - initialize: selection, trials bucketed by exact post-selection shape
@@ -15,24 +15,209 @@
 #     (result, info), and the info is collected per trial into
 #     `aux_info` (reference :379-391, :817-861, :1009-1011);
 #   - auxiliary per-trial inputs (`per_trial_inputs`, reference :439,
-#     :921-999): each chunk uploads its rows with the batch.
+#     :921-999): each chunk uploads its rows with the batch;
+#   - device-resident outputs (engine/resident.py): kept trials stay on
+#     the device behind a DeferredArray, and the next routine consumes
+#     their chunks from there (reference :865-915, :1051-1085);
+#   - the device trial store: uploaded chunks in an LRU by bytes, reused
+#     by later analyses of the same (selected) payload (reference
+#     :121-171, :1084-1144);
+#   - the HDF5 spill of a result over the host budget (reference
+#     :213-244);
+#   - the out-of-memory half of the dispatch recovery: evict the store
+#     and the residents, then retry once (reference :84-118).
 # Left out, as workarounds for the TPU runtime: the (re, im) complex
-# encoding, the readback relayout, dispatch retries and compile back-off,
-# f16 transfer/readback, the device trial store, device-resident outputs
-# and the mesh. Results are read back once, in full.
+# encoding, the readback relayout, the transient-error retries and the
+# compile back-off, f16 transfer/readback, the device constant cache (the
+# remote compile's payload limit) and the mesh.
+
+import sys
 
 import numpy as np
 import torch
 
 from ..shared.errors import SPYError, SPYValueError
+from ..shared.log import get_logger
+from . import resident as _resident
+from .resident import DeferredArray, DeviceResident, Record, _admit
 
-__all__ = ["ComputationalRoutine", "chunk_trials", "default_device", "set_device"]
+__all__ = [
+    "ComputationalRoutine",
+    "chunk_trials",
+    "clear_device_cache",
+    "default_device",
+    "set_device",
+    "transfer_counts",
+]
 
 #: device-memory budget per compute chunk (bytes)
 DEFAULT_CHUNK_BUDGET = 2 * 1024**3
 
 #: hard cap on trials per compute chunk
 MAX_CHUNK_TRIALS = 1024
+
+#: host-memory budget of one result (bytes): a larger one is written to a
+#: disk-backed HDF5 dataset
+DEFAULT_HOST_BUDGET = 16 * 1024**3
+
+#: device bytes of the trial store (uploaded chunks kept for the next
+#: analysis of the same payload); 0 turns the store off
+DEVICE_CACHE_BYTES = 4 * 1024**3
+_DEVICE_CACHE = {}  # key -> (list of device chunks, bytes)
+_DEVICE_CACHE_ORDER = []  # keys, least recently used first
+_DEVICE_CACHE_SIZE = [0]
+
+#: the trial-store bypass is logged once per process
+_FINGERPRINT_BYPASS_LOGGED = False
+
+#: bytes the engine moved across the host link since the last
+#: reset_transfer_counts(): "h2d" payload uploads, "h2d_aux" auxiliary
+#: per-trial inputs, "d2h" results read back (materializations and plot
+#: views included), "d2h_aux" the per-trial info read back
+_TRANSFERS = {"h2d": 0, "h2d_aux": 0, "d2h": 0, "d2h_aux": 0}
+
+
+def _count_transfer(kind, nbytes):
+    _TRANSFERS[kind] += int(nbytes)
+
+
+def transfer_counts():
+    """The bytes the engine moved across the host link, by kind, since the
+    last :func:`reset_transfer_counts`."""
+    return dict(_TRANSFERS)
+
+
+def reset_transfer_counts():
+    for k in _TRANSFERS:
+        _TRANSFERS[k] = 0
+
+
+def _device_cache_put(key, chunks, nbytes):
+    if DEVICE_CACHE_BYTES <= 0 or nbytes > DEVICE_CACHE_BYTES:
+        return
+    while _DEVICE_CACHE_ORDER and _DEVICE_CACHE_SIZE[0] + nbytes > DEVICE_CACHE_BYTES:
+        old = _DEVICE_CACHE_ORDER.pop(0)
+        _, old_bytes = _DEVICE_CACHE.pop(old)
+        _DEVICE_CACHE_SIZE[0] -= old_bytes
+    _DEVICE_CACHE[key] = (chunks, nbytes)
+    _DEVICE_CACHE_ORDER.append(key)
+    _DEVICE_CACHE_SIZE[0] += nbytes
+
+
+def _device_cache_get(key):
+    entry = _DEVICE_CACHE.get(key)
+    if entry is None:
+        return None
+    _DEVICE_CACHE_ORDER.remove(key)
+    _DEVICE_CACHE_ORDER.append(key)
+    return entry[0]
+
+
+def clear_device_cache():
+    """Empty the device trial store and read every device-resident result
+    back to the host (resident payloads are materialized first, never
+    lost)."""
+    _resident.materialize_all()
+    _DEVICE_CACHE.clear()
+    _DEVICE_CACHE_ORDER.clear()
+    _DEVICE_CACHE_SIZE[0] = 0
+
+
+def _dispatch_with_recovery(thunk, what="device dispatch"):
+    """Run `thunk`; on a device out-of-memory error, empty the trial store,
+    read the resident results back, release the allocator's cached blocks
+    and run it once more on the same device. Every other error, and a
+    second out-of-memory error, propagates."""
+    try:
+        return thunk()
+    except torch.OutOfMemoryError:
+        get_logger().warning(
+            "%s: device out of memory; emptying the trial store and reading the "
+            "resident results back, then retrying once", what)
+    clear_device_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return thunk()
+
+
+def _allocate_host_output(shape, dtype, owner):
+    """Host target of a stacked result: RAM, or a disk-backed HDF5 dataset
+    when it exceeds DEFAULT_HOST_BUDGET (used by the eager readback and
+    the deferred one; reference preallocate_output,
+    computational_routine.py:750-804). Over budget without h5py it
+    raises: the result never quietly falls back to RAM."""
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    if nbytes <= DEFAULT_HOST_BUDGET:
+        return np.empty(shape, dtype=dtype)
+    try:
+        import h5py
+    except ImportError:
+        raise SPYError(
+            "a result of {} bytes exceeds the host budget of {} bytes "
+            "(engine.routine.DEFAULT_HOST_BUDGET); spilling it to a disk-backed "
+            "HDF5 dataset needs the h5py package, which is not "
+            "installed".format(nbytes, DEFAULT_HOST_BUDGET)) from None
+    if owner is None or not hasattr(owner, "filename"):
+        raise SPYError(
+            "a result of {} bytes exceeds the host budget of {} bytes and its "
+            "target cannot hold an HDF5 file".format(nbytes, DEFAULT_HOST_BUDGET))
+    import os
+
+    from ..datatype.util import gen_session_filename
+
+    fname = owner.filename
+    # never truncate a file that already holds data (a reused output
+    # object, or a payload another dataset handle still points into):
+    # spill to a fresh session file and re-point the object
+    holds_data = (
+        owner._hdfFile is not None
+        or isinstance(getattr(owner, "_data", None), h5py.Dataset)
+        or (os.path.exists(fname) and os.path.getsize(fname) > 0)
+    )
+    if holds_data:
+        fname = gen_session_filename(os.path.splitext(fname)[1] or ".dat")
+        owner._filename = fname
+    f = h5py.File(fname, "w")
+    dset = f.create_dataset("data", shape=shape, dtype=dtype)
+    owner._hdfFile = f
+    owner._is_temp_file = True
+    return dset
+
+
+def _torch_dtype(dtype):
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _readback_rows(host_out, res, chunk_pos, offsets, sdim):
+    """Copy one chunk's device results `res` into `host_out`: one copy
+    into the rows of consecutive trials stacked on axis 0 of an
+    in-memory output, else per trial (an HDF5 dataset takes the per-trial
+    write)."""
+    first, last = chunk_pos[0], chunk_pos[-1]
+    if (sdim == 0 and last - first == len(chunk_pos) - 1
+            and isinstance(host_out, np.ndarray)):
+        dst = host_out[offsets[first] : offsets[last + 1]]
+        torch.from_numpy(dst).copy_(res.reshape(dst.shape))
+        _count_transfer("d2h", dst.nbytes)
+        return
+    arr = res.cpu().numpy()
+    _count_transfer("d2h", arr.nbytes)
+    for i, pos in enumerate(chunk_pos):
+        sl = [slice(None)] * (arr.ndim - 1)
+        sl[sdim] = slice(int(offsets[pos]), int(offsets[pos + 1]))
+        host_out[tuple(sl)] = arr[i]
+
+
+def _materialize_resident(resident):
+    """Readback of a :class:`DeviceResident`: the stacked host output from
+    its records, one copy a record where its trials are consecutive on
+    stacking dim 0."""
+    host_out = _allocate_host_output(resident.shape, resident.dtype, resident._owner())
+    for rec in resident.records:
+        _readback_rows(host_out, rec.dev, list(rec.positions), resident.offsets,
+                       resident.stackingdim)
+    return host_out
 
 
 #: the device every engine entry point computes on (see set_device)
@@ -344,13 +529,18 @@ class ComputationalRoutine:
     # compute (reference computational_routine.py:513-1035)
     # ------------------------------------------------------------------ #
 
-    def compute(self, data, out, log_dict=None, post_device_fn=None):
+    def compute(self, data, out, log_dict=None, post_device_fn=None, device_resident=None):
         """
         Run the routine on ``self.device`` (one device: the JAX engine's
         mesh has no counterpart here). `post_device_fn` is an optional
         device-side transform applied to the trial average when
         ``keeptrials=False`` (e.g. the coherence normalization); it may
         change the output's dtype.
+
+        `device_resident` decides whether kept per-trial results stay on
+        the device with a deferred readback (engine/resident.py): True or
+        False force it, None (the default) keeps a ``keeptrials=True``
+        result resident when it fits ``resident.RESIDENT_BUDGET``.
         """
         if self.buckets is None:
             raise SPYError("call initialize() before compute()")
@@ -358,10 +548,30 @@ class ComputationalRoutine:
         self.aux_info = {}
         self._aux_per_trial = {}
         self._aux_chunked = {}
+        self._resident_mode = self._decide_resident(device_resident)
         self._run(data, out)
         self._finalize_aux()
         self.write_log(data, out, log_dict)
         self.process_metadata(data, out)
+        # seal after process_metadata: the trialdefinition assignment bumps
+        # the owner's cache token, and consumers match the sealed value
+        if getattr(out, "_device_resident", None) is not None:
+            out._device_resident.seal()
+
+    def _decide_resident(self, device_resident):
+        """Should this run keep its per-trial results on the device?"""
+        if device_resident is False or not self.keeptrials:
+            return False
+        budget = _resident.RESIDENT_BUDGET
+        est = int(np.prod(self.outputShape)) * np.dtype(self.dtype).itemsize
+        denied = (budget <= 0
+                  or (device_resident is None and est > budget)
+                  or not _admit(est))
+        if denied and device_resident is True:
+            get_logger().warning(
+                "device_resident=True asked for, but the resident budget of %d bytes "
+                "cannot hold %d bytes: reading the result back to the host", budget, est)
+        return not denied
 
     def _accumulate_aux(self, aux_info, chunk_pos):
         """Collect one chunk's info dict, read back to the host: keys in
@@ -369,6 +579,7 @@ class ComputationalRoutine:
         axis is the chunk's valid trials), the others per chunk."""
         for k, v in aux_info.items():
             arr = torch.as_tensor(v).cpu().numpy()
+            _count_transfer("d2h_aux", arr.nbytes)
             if k in self.aux_per_trial:
                 if arr.ndim < 1 or arr.shape[0] != len(chunk_pos):
                     raise SPYError(
@@ -414,71 +625,206 @@ class ComputationalRoutine:
             row = torch.from_numpy(np.array(arr[c0 : c0 + 1])).to(self.device)
             rows = row.expand((n_valid,) + row.shape[1:])
         else:
-            rows = torch.from_numpy(np.array(arr[c0 : c0 + n_valid])).to(self.device)
+            row = torch.from_numpy(np.array(arr[c0 : c0 + n_valid]))
+            rows = row.to(self.device)
+        _count_transfer("h2d_aux", row.numel() * row.element_size())
         if n_rows > n_valid:
             pad = torch.zeros((n_rows - n_valid,) + rows.shape[1:], dtype=rows.dtype,
                               device=rows.device)
             rows = torch.cat([rows, pad], dim=0)
         return rows
 
+    def _selection_fingerprint(self, data):
+        """Hashable description of the selection's gather plan, for the
+        trial-store key. None (the store is bypassed for this run) when
+        the selection cannot be fingerprinted; the bypass is logged once
+        per process."""
+        sel = self.selector
+        try:
+            with np.printoptions(threshold=sys.maxsize):
+                parts = [tuple(sel.trial_ids)]
+                for k in range(len(sel.trial_ids)):
+                    parts.append(repr(sel.trial_indexer(data, k)))
+            return hash(tuple(parts))
+        except Exception as exc:
+            global _FINGERPRINT_BYPASS_LOGGED
+            if not _FINGERPRINT_BYPASS_LOGGED:
+                _FINGERPRINT_BYPASS_LOGGED = True
+                get_logger().warning(
+                    "%s: the selection cannot be fingerprinted (%s); the device trial "
+                    "store is bypassed for this run (repeated analyses upload their "
+                    "inputs again)", self.__class__.__name__, repr(exc)[:120])
+            return None
+
+    def _plan_resident_consume(self, data):
+        """``{bucket shape: [Record, ...]}`` when `data`'s payload is a
+        sealed device-resident result on this routine's device, no
+        selection is active and the records cover every bucket in order;
+        None otherwise (the host path)."""
+        res = getattr(data, "_device_resident", None)
+        if res is None or not res.consumable_by(data) or data.selection is not None:
+            return None
+        by_shape = {}
+        for rec in res.records:
+            if rec.dev.device != self.device:
+                return None
+            by_shape.setdefault(rec.trial_shape, []).append(rec)
+        plan = {}
+        for shp, positions in self.buckets.items():
+            recs = by_shape.get(shp)
+            if recs is None or [p for r in recs for p in r.positions] != list(positions):
+                return None
+            plan[shp] = recs
+        return plan
+
+    def _resident_chunks(self, records, chunk, pad):
+        """Chunks over the producer's resident records: a record larger
+        than `chunk` is split on the device; with `pad` each chunk is
+        zero-padded to `chunk` rows (the fused trial sum's fixed chunk).
+        Yields ``(device batch, positions)``."""
+        for rec in records:
+            for s0 in range(0, len(rec.positions), chunk):
+                sub = rec.dev[s0 : s0 + chunk]
+                if pad and sub.shape[0] < chunk:
+                    zeros = torch.zeros((chunk - sub.shape[0],) + tuple(sub.shape[1:]),
+                                        dtype=sub.dtype, device=sub.device)
+                    sub = torch.cat([sub, zeros], dim=0)
+                yield sub, list(rec.positions[s0 : s0 + chunk])
+
+    def _host_chunks(self, data, positions, shp, chunk, plan):
+        """Chunks over the host payload: gather, pad to `chunk` rows and
+        upload, with the uploads kept in the device trial store for later
+        analyses of the same (selected) payload; `plan` (the bucket's
+        chunk-plan entry) records which of the two it was. Yields
+        ``(device batch, positions)``."""
+        in_dtype = np.dtype(data.data.dtype)
+        cache_key = (
+            getattr(data, "_cache_token", None),
+            self._selection_fingerprint(data),
+            shp,
+            chunk,
+            str(self.device),
+            str(in_dtype),
+            tuple(positions),
+        )
+        cacheable = cache_key[0] is not None and cache_key[1] is not None
+        cached = _device_cache_get(cache_key) if cacheable else None
+        built = [] if (cached is None and cacheable and DEVICE_CACHE_BYTES > 0) else None
+        plan["source"] = "trial store" if cached is not None else "upload"
+        for k, c0 in enumerate(range(0, len(positions), chunk)):
+            chunk_pos = positions[c0 : c0 + chunk]
+            if cached is not None:
+                yield cached[k], chunk_pos
+                continue
+            batch = self._gather_batch(data, chunk_pos)
+            if len(chunk_pos) < chunk:
+                pad = np.zeros((chunk - len(chunk_pos),) + batch.shape[1:], batch.dtype)
+                batch = np.concatenate([batch, pad], axis=0)
+            batch = np.ascontiguousarray(batch)
+            dev_batch = torch.from_numpy(batch).to(self.device)
+            _count_transfer("h2d", batch.nbytes)
+            if built is not None:
+                built.append(dev_batch)
+                if len(built) * batch.nbytes > DEVICE_CACHE_BYTES:
+                    built = None  # the store cannot hold the bucket: keep no chunk
+            yield dev_batch, chunk_pos
+        if built:
+            nbytes = sum(c.numel() * c.element_size() for c in built)
+            _device_cache_put(cache_key, built, nbytes)
+
     def _run(self, data, out):
         sdim = self.out_stackingdim
         fused_sum = not self.keeptrials and hasattr(self, "process_batch_sum")
+        resident_out = bool(getattr(self, "_resident_mode", False))
+        stack_lens = [oshp[sdim] for oshp in self._per_trial_out_shapes_ordered]
+        offsets = np.concatenate([[0], np.cumsum(stack_lens)]).astype(int)
         host_out = None
-        if self.keeptrials:
-            host_out = np.empty(self.outputShape, dtype=self.dtype)
-            stack_lens = [oshp[sdim] for oshp in self._per_trial_out_shapes_ordered]
-            offsets = np.concatenate([[0], np.cumsum(stack_lens)]).astype(int)
+        if self.keeptrials and not resident_out:
+            host_out = _allocate_host_output(self.outputShape, self.dtype, out)
 
+        consume_plan = self._plan_resident_consume(data)
+        if consume_plan is None and isinstance(getattr(data, "_data", None), DeferredArray):
+            # resident but not consumable here (a selection, a mutation, a
+            # shape or device mismatch): read it back once and take the
+            # host path with its vectorized gather plan
+            data._data._ensure()
+            self._fast_plan = self._plan_fast_gather(data)
+
+        out_dtype = _torch_dtype(self.dtype) if self.keeptrials else None
+        #: per bucket: its trial shape, chunk size, where its chunks came
+        #: from ("resident", "upload" or "trial store") and their valid rows
+        self.chunk_plan = []
+        records = []
         acc = None  # on-device sum over trials for keeptrials=False
         itemsize = np.dtype(data.data.dtype).itemsize
+        name = self.__class__.__name__
         for shp, positions in self.buckets.items():
             aux_all = tuple(np.asarray(a) for a in self.per_trial_inputs(data, positions))
             aux_bytes = sum(int(np.prod(a.shape[1:])) * a.itemsize for a in aux_all)
             chunk = self._chunk_size(shp, len(positions), itemsize, aux_bytes)
-            for c0 in range(0, len(positions), chunk):
-                chunk_pos = positions[c0 : c0 + chunk]
+            plan = {"shape": shp, "chunk": chunk, "source": "resident", "rows": []}
+            self.chunk_plan.append(plan)
+            if consume_plan is not None:
+                source = self._resident_chunks(consume_plan[shp], chunk, pad=fused_sum)
+            else:
+                source = self._host_chunks(data, positions, shp, chunk, plan)
+            pos_index = {p: i for i, p in enumerate(positions)}
+            out_shp = self.out_per_trial_shapes[shp][0]
+            for dev_batch, chunk_pos in source:
                 n_valid = len(chunk_pos)
-                batch = self._gather_batch(data, chunk_pos)
-                if n_valid < chunk:
-                    pad = np.zeros((chunk - n_valid,) + batch.shape[1:], batch.dtype)
-                    batch = np.concatenate([batch, pad], axis=0)
-                dev_batch = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-
+                c0 = pos_index[chunk_pos[0]]
+                plan["rows"].append(n_valid)
                 if fused_sum:
-                    aux = [self._upload_aux(a, c0, n_valid, chunk) for a in aux_all]
-                    res = self.process_batch_sum(dev_batch, n_valid, *aux, **self.cfg)
+                    res = _dispatch_with_recovery(
+                        lambda: self.process_batch_sum(
+                            dev_batch, n_valid,
+                            *[self._upload_aux(a, c0, n_valid, chunk) for a in aux_all],
+                            **self.cfg),
+                        what="{} chunk dispatch".format(name))
                     acc = res if acc is None else acc + res
                     continue
-                aux = [self._upload_aux(a, c0, n_valid, n_valid) for a in aux_all]
-                res = self.process_batch(dev_batch[:n_valid], *aux, **self.cfg)
+                res = _dispatch_with_recovery(
+                    lambda: self.process_batch(
+                        dev_batch[:n_valid],
+                        *[self._upload_aux(a, c0, n_valid, n_valid) for a in aux_all],
+                        **self.cfg),
+                    what="{} chunk dispatch".format(name))
                 if isinstance(res, tuple):
                     res, aux_info = res
                     self._accumulate_aux(aux_info, chunk_pos)
                 if not self.keeptrials:
                     res = res.sum(dim=0)
                     acc = res if acc is None else acc + res
-                    continue
-                first, last = chunk_pos[0], chunk_pos[-1]
-                if sdim == 0 and last - first == n_valid - 1:
-                    # consecutive trials stacked along axis 0: one copy from
-                    # the device into their rows of the output
-                    dst = host_out[offsets[first] : offsets[last + 1]]
-                    torch.from_numpy(dst).copy_(res.reshape(dst.shape))
-                    continue
-                arr = res.cpu().numpy()
-                for i, pos in enumerate(chunk_pos):
-                    sl = [slice(None)] * (arr.ndim - 1)
-                    sl[sdim] = slice(offsets[pos], offsets[pos + 1])
-                    host_out[tuple(sl)] = arr[i]
+                elif resident_out:
+                    # the host route rounds to the output dtype on the way
+                    # back and hands the next routine a contiguous batch; the
+                    # record does the same, so a consumer computes the same
+                    # values on either route (and a view pins no larger
+                    # buffer)
+                    res = res.to(out_dtype).reshape((n_valid,) + tuple(out_shp)).contiguous()
+                    records.append(Record(tuple(chunk_pos), res, tuple(out_shp)))
+                else:
+                    _readback_rows(host_out, res, chunk_pos, offsets, sdim)
 
         if not self.keeptrials:
             avg = acc / self.numTrials
             if self._post_fn is not None:
                 avg = self._post_fn(avg)
-            host_out = avg.cpu().numpy()
-            self.outputShape = host_out.shape
-            self.dtype = host_out.dtype
+            self.outputShape = tuple(avg.shape)
+            self.dtype = np.dtype(str(avg.dtype).replace("torch.", ""))
+            host_out = _allocate_host_output(self.outputShape, self.dtype, out)
+            if isinstance(host_out, np.ndarray):
+                torch.from_numpy(host_out).copy_(avg)
+            else:
+                host_out[...] = avg.cpu().numpy()
+            _count_transfer("d2h", avg.numel() * avg.element_size())
+        elif resident_out:
+            res = DeviceResident(records, self.outputShape, self.dtype, offsets, sdim,
+                                 _materialize_resident, out)
+            out._bump_cache_token()
+            out._device_resident = res
+            out._data = DeferredArray(res)
+            return
         out.data = host_out
 
     def default_trialdefinition(self, data, out):

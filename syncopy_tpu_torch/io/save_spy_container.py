@@ -124,6 +124,10 @@ def save(out, container=None, tag=None, filename=None, overwrite=False, memuse=1
     was_backed = isinstance(out.data, h5py.Dataset)
     if was_backed:
         out._data = np.asarray(out.data)
+        res = getattr(out, "_device_resident", None)
+        if res is not None and res.materialized:
+            # a spilled resident result: its host copy is now this array
+            res._real = out._data
         extra = {k: (np.asarray(v) if v is not None else None) for k, v in out._registered_datasets.items()}
         out._close_hdf()
         out._extra_datasets.update(extra)

@@ -44,6 +44,9 @@ pltConfig = {
     "mYSize": 2.4,
     "mMaxAxes": 25,
     "cmap": "magma",
+    #: time columns of a time-frequency image; a device-resident TFR is
+    #: box-averaged down to it on the device before the readback
+    "maxPlotTime": 1024,
 }
 
 _style_enabled = os.environ.get("SPY_PLOT_STYLE", "1") != "0"

@@ -103,17 +103,27 @@ def _is_time_freq(data):
     return data.data.shape[data.dimord.index("time")] > len(data.trials)
 
 
-def _tf_fetch(data, show_kwargs):
-    """TF image array for plotting, read through :func:`show` from the
-    host payload. Returns ``(array, decimation_factor)``."""
-    # The JAX package first tries a device-resident TFR, decimated to
-    # pltConfig["maxPlotTime"] columns on the device; the port has no
-    # resident outputs until ROADMAP Queue 1 item 12, so every TFR takes
-    # this host path.
+def _tf_fetch(data, show_kwargs, max_time=None):
+    """TF image array for plotting. Fast path: a device-resident TFR is
+    sliced and box-averaged down to the plot resolution (``max_time``
+    columns, pltConfig["maxPlotTime"]) on the device before the readback,
+    which then carries only the view; otherwise the trial is read through
+    :func:`show` from the host payload. Returns ``(array,
+    decimation_factor)``."""
+    if max_time is None:
+        max_time = _plt.pltConfig.get("maxPlotTime", 1024)
     trials = show_kwargs.pop("trials", None)
     if trials is None and len(data.trials) > 1:
         SPYWarning("Plotting only the first trial; use `trials=` to select")
         trials = 0
+    res = getattr(data, "_device_resident", None)
+    scalar_trial = trials is None or (
+        np.isscalar(trials) and np.issubdtype(type(trials), np.number))
+    if (res is not None and res.consumable_by(data) and data.selection is None
+            and not show_kwargs and max_time and scalar_trial):
+        pos = 0 if trials is None else int(trials)
+        if 0 <= pos < len(data.trials):
+            return res.fetch_trial_view(pos, max_time=max_time)
     arr = data.show(squeeze=False, trials=trials, **show_kwargs)
     if isinstance(arr, list):
         arr = arr[0]

@@ -23,6 +23,7 @@ class EngineScratch:
         self._log = ""
         self.data = None
         self.log = ""
+        self._device_resident = None
 
 
 def _real_dtype(dtype):

@@ -158,7 +158,8 @@ def timelockanalysis(
             cov_cr = Covariance(ddof=eff_ddof, demean=True)
             cov_scratch = EngineScratch()
             cov_cr.initialize(data, 0, keeptrials=keeptrials)
-            cov_cr.compute(data, cov_scratch, log_dict={"operation": "timelock covariance"})
+            cov_cr.compute(data, cov_scratch, log_dict={"operation": "timelock covariance"},
+                           device_resident=False)
             cov_arr = np.asarray(cov_scratch.data)
             cov = cov_arr if keeptrials else cov_arr[0]
 

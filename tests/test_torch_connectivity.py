@@ -288,6 +288,7 @@ def test_from_arrays_builds_the_same_object():
     "syncopy_tpu_torch.parallel",
     "syncopy_tpu_torch.shared.profiling",
     "syncopy_tpu_torch.datatype.methods.arithmetic",
+    "syncopy_tpu_torch.engine.resident",
 ])
 def test_import_pulls_in_no_jax(module):
     code = ("import sys, " + module + "; "

@@ -4,8 +4,9 @@
 # versions, and the coherence, PPC, Granger, jackknife, corr,
 # trial-statistics, freqanalysis, preprocessing and resampling paths on
 # the card against the same paths on the CPU; the device AR(2) generator
-# against float64, and a .spy round trip of a coherence computed through
-# the kernel (where h5py is installed). They skip where no CUDA
+# against float64, a .spy round trip of a coherence computed through
+# the kernel (where h5py is installed), the resident band-pass, resample
+# and coherence chain, and the trial store's cached timelock upload. They skip where no CUDA
 # device is present (the kernels have no CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -788,3 +789,72 @@ def test_coherence_through_the_kernel_round_trips_a_container(cuda_device, tmp_p
     got = np.asarray(back.data)
     assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
     assert np.array_equal(back.freq, coh.freq)
+
+
+@pytest.mark.cuda
+def test_resident_chain_launches_each_kernel_once_a_chunk(cuda_device):
+    """Band-pass, resample to 250 Hz and coherence on the card with the
+    intermediates resident: one Butterworth launch and one CSD launch a
+    chunk, the input uploaded once, only the coherence read back, and the
+    coherence bitwise equal to the residency-off chain (both run the same
+    chunks here)."""
+    from syncopy_tpu_torch.engine import resident
+
+    rng = np.random.default_rng(5)
+    data = rng.normal(size=(24 * 1000, 6)).astype(np.float32)
+    trl = np.zeros((24, 3))
+    trl[:, 0] = np.arange(24) * 1000
+    trl[:, 1] = trl[:, 0] + 1000
+    adata = spt.from_arrays(data, trl, 1000.0)
+
+    def chain():
+        bp = spt.preprocessing(adata, filter_class="but", filter_type="bp", freq=[30, 100],
+                               order=4)
+        rs = spt.resampledata(bp, resamplefs=250)
+        return bp, rs, spt.connectivityanalysis(rs, method="coh", tapsmofrq=2)
+
+    previous = spt.set_device(cuda_device)
+    saved = resident.RESIDENT_BUDGET
+    try:
+        routine.clear_device_cache()
+        routine.reset_transfer_counts()
+        ik.sosfilt_batch.launches = 0
+        ck.csd_accumulate_tiled.launches = 0
+        bp, rs, coh = chain()
+        counts = routine.transfer_counts()
+        assert ik.sosfilt_batch.launches == 1 and ck.csd_accumulate_tiled.launches == 1
+        assert isinstance(bp._data, resident.DeferredArray)
+        assert isinstance(rs._data, resident.DeferredArray)
+        assert counts["h2d"] == 32 * 1000 * 6 * 4 and counts["d2h"] == coh.data.nbytes
+        routine.clear_device_cache()
+        resident.RESIDENT_BUDGET = 0
+        off = chain()
+    finally:
+        resident.RESIDENT_BUDGET = saved
+        routine.clear_device_cache()
+        spt.set_device(previous)
+    assert np.array_equal(np.asarray(coh.data), np.asarray(off[2].data))
+
+
+@pytest.mark.cuda
+def test_cached_timelock_uploads_nothing(cuda_device):
+    """timelockanalysis with covariance on the card: the first call
+    uploads the payload once for its three engine passes, a second call
+    takes every chunk from the trial store."""
+    rng = np.random.default_rng(17)
+    trl = np.array([[k * 300, k * 300 + 300, 0] for k in range(12)], dtype=float)
+    adata = spt.from_arrays(rng.normal(size=(12 * 300, 6)).astype(np.float32), trl, 1000.0)
+    previous = spt.set_device(cuda_device)
+    try:
+        routine.clear_device_cache()
+        routine.reset_transfer_counts()
+        first = spt.timelockanalysis(adata, covariance=True)
+        assert routine.transfer_counts()["h2d"] == 16 * 300 * 6 * 4
+        routine.reset_transfer_counts()
+        second = spt.timelockanalysis(adata, covariance=True)
+        assert routine.transfer_counts()["h2d"] == 0
+    finally:
+        routine.clear_device_cache()
+        spt.set_device(previous)
+    for name in ("avg", "var", "cov"):
+        assert np.array_equal(np.asarray(getattr(first, name)), np.asarray(getattr(second, name)))
