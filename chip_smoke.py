@@ -913,17 +913,16 @@ def measured_call(name, fn, expect=None):
     return res, (wall, dev_gb, host.gb)
 
 
-def warm_wall(name, fn, reps=1, clear=True):
+def warm_wall(name, fn, reps=1):
     """Host-clock seconds of `reps` more calls of `fn`, synchronized, each
-    after emptying the trial store (unless not `clear`) and including the
-    readback of a device-resident result; the resident-only walls, to the
-    end of the call before that readback, are printed beside them."""
+    after emptying the trial store and including the readback of a
+    device-resident result; the resident-only walls, to the end of the
+    call before that readback, are printed beside them."""
     import torch
 
     walls, resident_walls = [], []
     for _ in range(reps):
-        if clear:
-            clear_store()
+        clear_store()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()

@@ -210,7 +210,7 @@ class BaseData(ABC):
         if propertyName == "data" and self._device_resident is not None:
             # payload is being replaced: the device-resident copy (and any
             # pending deferred readback) is obsolete — drop it
-            self._device_resident.records = None
+            self._device_resident.release()
             self._device_resident = None
         if inData is None:
             self._close_hdf()

@@ -13,7 +13,10 @@
 #     host array from them (offsets, stacking dim, dtype). Sealed with the
 #     owner's cache token: a later mutation of the owner stops direct
 #     consumption, while materialization stays exact (the records are
-#     never written to).
+#     never written to). The read-back array is read-only while the
+#     records exist, so an in-place write raises instead of leaving them
+#     stale; a payload that cannot be made read-only (an HDF5 dataset)
+#     releases them.
 #
 # ``DeferredArray``
 #     The owner's ``_data`` until the first element access: ``shape``,
@@ -21,11 +24,11 @@
 #     ``np.asarray`` and ``astype`` read the payload back and swap the real
 #     array in.
 #
-# Device-memory accounting: a process-wide registry bounds the bytes that
-# unmaterialized residents pin (RESIDENT_BUDGET). Over budget, the oldest
-# resident is read back and its device tensors dropped. Materialized
-# residents keep their tensors (still consumable downstream) but are the
-# first to be dropped.
+# Device-memory accounting: a process-wide registry bounds the device
+# bytes that all residents hold, read back or not (RESIDENT_BUDGET). Over
+# budget, read-back residents drop their tensors first (they stay
+# consumable downstream until then); then the oldest pending resident is
+# read back and its tensors dropped.
 #
 # Differences from the JAX package: a record is the chunk's valid rows,
 # ``(n_valid, *trial_shape)`` in the result's own dtype (complex stays
@@ -38,7 +41,7 @@ import numpy as np
 
 __all__ = ["DeviceResident", "DeferredArray", "Record", "materialize_all", "RESIDENT_BUDGET"]
 
-#: device bytes that unmaterialized resident results may pin; 0 turns
+#: device bytes that resident results may hold, read back or not; 0 turns
 #: device-resident outputs off
 RESIDENT_BUDGET = 6 * 1024**3
 
@@ -52,7 +55,8 @@ _REGISTRY = []  # weak references to DeviceResident, in creation order
 
 
 def _registry_account():
-    """(pinned bytes, live references); prunes dead references in place."""
+    """(device bytes held, live references); prunes dead references in
+    place."""
     alive = []
     pinned = 0
     for ref in _REGISTRY:
@@ -60,16 +64,15 @@ def _registry_account():
         if res is None or res.records is None:
             continue
         alive.append(ref)
-        if not res.materialized:
-            pinned += res.nbytes_device
+        pinned += res.nbytes_device
     _REGISTRY[:] = alive
     return pinned, alive
 
 
 def _admit(new_bytes):
-    """Make room for `new_bytes` of pinned device memory: drop the tensors
-    of materialized residents first, then read back and drop the oldest
-    pinned ones. True when the bytes fit the budget."""
+    """Make room for `new_bytes` of device memory: drop the tensors of
+    read-back residents first, then read back and drop the oldest pending
+    ones. True when the bytes fit the budget."""
     budget = RESIDENT_BUDGET
     pinned, alive = _registry_account()
     if pinned + new_bytes <= budget:
@@ -128,25 +131,34 @@ class DeviceResident:
             self.sealed_token = owner._cache_token
 
     def consumable_by(self, data):
-        """True when `data`'s payload is exactly these records and `data`
-        was not mutated since they were sealed."""
+        """True when `data`'s payload is exactly these records (their
+        DeferredArray, or the read-only array read back from them) and
+        `data` was not mutated since they were sealed."""
+        payload = getattr(data, "_data", None)
         return (
             self.records is not None
             and self.sealed_token is not None
             and getattr(data, "_cache_token", None) == self.sealed_token
+            and ((self._real is not None and payload is self._real)
+                 or (isinstance(payload, DeferredArray) and payload._resident is self))
         )
 
     def materialize(self):
         """Read the records back into the host array (idempotent) and swap
-        it in for the owner's DeferredArray. The in-flight guard stops a
-        second entry when an out-of-memory eviction runs during this very
-        readback."""
+        it in for the owner's DeferredArray. The array is read-only while
+        the records exist; an HDF5 dataset (a spilled result) cannot be, so
+        it releases them. The in-flight guard stops a second entry when an
+        out-of-memory eviction runs during this very readback."""
         if self._real is None and not self._materializing:
             self._materializing = True
             try:
                 self._real = self._materialize_fn(self)
             finally:
                 self._materializing = False
+            if isinstance(self._real, np.ndarray):
+                self._real.flags.writeable = False
+            else:
+                self.records = None
             owner = self._owner()
             if owner is not None and isinstance(owner._data, DeferredArray):
                 owner._data = self._real
@@ -159,7 +171,14 @@ class DeviceResident:
             return  # an in-flight readback owns the records
         if self._real is None and self.records is not None:
             self.materialize()
+        self.release()
+
+    def release(self):
+        """Forget the device tensors without reading them back (the owner's
+        payload was replaced); the read-back array becomes writable."""
         self.records = None
+        if isinstance(self._real, np.ndarray):
+            self._real.flags.writeable = True
 
     def fetch_trial_view(self, pos, max_time=1024, magnitude=True):
         """

@@ -32,6 +32,7 @@
 # remote compile's payload limit) and the mesh.
 
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -529,7 +530,7 @@ class ComputationalRoutine:
     # compute (reference computational_routine.py:513-1035)
     # ------------------------------------------------------------------ #
 
-    def compute(self, data, out, log_dict=None, post_device_fn=None, device_resident=None):
+    def compute(self, data, out, log_dict=None, post_device_fn=None, device_resident=True):
         """
         Run the routine on ``self.device`` (one device: the JAX engine's
         mesh has no counterpart here). `post_device_fn` is an optional
@@ -537,10 +538,9 @@ class ComputationalRoutine:
         ``keeptrials=False`` (e.g. the coherence normalization); it may
         change the output's dtype.
 
-        `device_resident` decides whether kept per-trial results stay on
-        the device with a deferred readback (engine/resident.py): True or
-        False force it, None (the default) keeps a ``keeptrials=True``
-        result resident when it fits ``resident.RESIDENT_BUDGET``.
+        With `device_resident` (the default) a ``keeptrials=True`` result
+        that fits ``resident.RESIDENT_BUDGET`` stays on the device with a
+        deferred readback (engine/resident.py); False reads it back.
         """
         if self.buckets is None:
             raise SPYError("call initialize() before compute()")
@@ -559,19 +559,13 @@ class ComputationalRoutine:
             out._device_resident.seal()
 
     def _decide_resident(self, device_resident):
-        """Should this run keep its per-trial results on the device?"""
-        if device_resident is False or not self.keeptrials:
+        """Should this run keep its per-trial results on the device? Only a
+        kept result within the resident budget, once older residents have
+        made room."""
+        if not (device_resident and self.keeptrials):
             return False
-        budget = _resident.RESIDENT_BUDGET
         est = int(np.prod(self.outputShape)) * np.dtype(self.dtype).itemsize
-        denied = (budget <= 0
-                  or (device_resident is None and est > budget)
-                  or not _admit(est))
-        if denied and device_resident is True:
-            get_logger().warning(
-                "device_resident=True asked for, but the resident budget of %d bytes "
-                "cannot hold %d bytes: reading the result back to the host", budget, est)
-        return not denied
+        return est <= _resident.RESIDENT_BUDGET and _admit(est)
 
     def _accumulate_aux(self, aux_info, chunk_pos):
         """Collect one chunk's info dict, read back to the host: keys in
@@ -721,7 +715,11 @@ class ComputationalRoutine:
                 pad = np.zeros((chunk - len(chunk_pos),) + batch.shape[1:], batch.dtype)
                 batch = np.concatenate([batch, pad], axis=0)
             batch = np.ascontiguousarray(batch)
-            dev_batch = torch.from_numpy(batch).to(self.device)
+            with warnings.catch_warnings():
+                # a view of a read-back resident payload is read-only; the
+                # tensor is only read
+                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+                dev_batch = torch.from_numpy(batch).to(self.device)
             _count_transfer("h2d", batch.nbytes)
             if built is not None:
                 built.append(dev_batch)
@@ -743,12 +741,16 @@ class ComputationalRoutine:
             host_out = _allocate_host_output(self.outputShape, self.dtype, out)
 
         consume_plan = self._plan_resident_consume(data)
-        if consume_plan is None and isinstance(getattr(data, "_data", None), DeferredArray):
-            # resident but not consumable here (a selection, a mutation, a
-            # shape or device mismatch): read it back once and take the
-            # host path with its vectorized gather plan
-            data._data._ensure()
-            self._fast_plan = self._plan_fast_gather(data)
+        if consume_plan is None:
+            if isinstance(getattr(data, "_data", None), DeferredArray):
+                # resident but not consumable here (a selection, a mutation,
+                # a shape or device mismatch): read it back once
+                data._data._ensure()
+            if getattr(self, "_fast_plan", None) is None:
+                # the plan of initialize() saw a DeferredArray, or this
+                # run's admission read the input back since: plan the host
+                # path's vectorized gather on the payload now in place
+                self._fast_plan = self._plan_fast_gather(data)
 
         out_dtype = _torch_dtype(self.dtype) if self.keeptrials else None
         #: per bucket: its trial shape, chunk size, where its chunks came

@@ -124,10 +124,6 @@ def save(out, container=None, tag=None, filename=None, overwrite=False, memuse=1
     was_backed = isinstance(out.data, h5py.Dataset)
     if was_backed:
         out._data = np.asarray(out.data)
-        res = getattr(out, "_device_resident", None)
-        if res is not None and res.materialized:
-            # a spilled resident result: its host copy is now this array
-            res._real = out._data
         extra = {k: (np.asarray(v) if v is not None else None) for k, v in out._registered_datasets.items()}
         out._close_hdf()
         out._extra_datasets.update(extra)
@@ -152,7 +148,14 @@ def save(out, container=None, tag=None, filename=None, overwrite=False, memuse=1
     with open(filename + FILE_EXT["info"], "w") as fj:
         json.dump(info, fj, indent=2, default=str)
 
-    # re-attach the object to the saved file (read/write, no longer temp)
+    # re-attach the object to the saved file (read/write, no longer temp);
+    # a device-resident copy of the payload goes with the old payload, as
+    # it would through the data setter: a write into the file must not
+    # leave it stale
+    res = getattr(out, "_device_resident", None)
+    if res is not None:
+        res.release()
+        out._device_resident = None
     f = h5py.File(filename, "r+")
     out._hdfFile = f
     out._data = f["data"]

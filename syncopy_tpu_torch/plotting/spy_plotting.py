@@ -103,15 +103,14 @@ def _is_time_freq(data):
     return data.data.shape[data.dimord.index("time")] > len(data.trials)
 
 
-def _tf_fetch(data, show_kwargs, max_time=None):
+def _tf_fetch(data, show_kwargs):
     """TF image array for plotting. Fast path: a device-resident TFR is
-    sliced and box-averaged down to the plot resolution (``max_time``
-    columns, pltConfig["maxPlotTime"]) on the device before the readback,
+    sliced and box-averaged down to the plot resolution
+    (pltConfig["maxPlotTime"] columns) on the device before the readback,
     which then carries only the view; otherwise the trial is read through
     :func:`show` from the host payload. Returns ``(array,
     decimation_factor)``."""
-    if max_time is None:
-        max_time = _plt.pltConfig.get("maxPlotTime", 1024)
+    max_time = _plt.pltConfig["maxPlotTime"]
     trials = show_kwargs.pop("trials", None)
     if trials is None and len(data.trials) > 1:
         SPYWarning("Plotting only the first trial; use `trials=` to select")

@@ -64,6 +64,18 @@ def test_a_large_result_lands_in_an_hdf5_dataset(adata, monkeypatch, resident_on
     assert np.array_equal(spec.data[()], np.asarray(ref.data))
 
 
+def test_a_spilled_read_back_releases_its_records(adata, monkeypatch):
+    # a dataset on disk cannot be made read-only, so the records go: a
+    # write into it cannot leave them stale
+    monkeypatch.setattr(routine, "DEFAULT_HOST_BUDGET", 1024)
+    spec = _spec(adata)
+    res = spec._device_resident
+    assert res.records is not None
+    np.asarray(spec.data)
+    assert isinstance(spec.data, h5py.Dataset) and res.records is None
+    assert not res.consumable_by(spec)
+
+
 def test_a_spilled_result_round_trips(adata, monkeypatch, tmp_path):
     monkeypatch.setattr(routine, "DEFAULT_HOST_BUDGET", 1024)
     spec = _spec(adata)
