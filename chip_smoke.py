@@ -137,6 +137,26 @@ Phases, each of which raises on failure (non-zero exit):
    read-back trial (1e-5 of its maximum), its time and bytes against the
    whole readback's. d: the HDF5 spill of a result over a lowered host
    budget, where h5py is installed (else "not run").
+18. the mesh (parallel/mesh.py), four positions on cuda:0. a: coh and ppc
+   on phase 6's data on a 4 x 1 trial mesh and a 2 x 2 trial x channel
+   mesh: one kernel launch per trial shard and chunk (the last shard's
+   rows partly padding), the same bytes across the host link as the
+   unsharded call, within 1e-6 of phases 6 and 7 and within 1e-5 of
+   their float64 results; b: phase 15b's band-pass on the 4 x 1 mesh, one
+   Butterworth launch per shard and chunk, within 1e-6 of the unsharded
+   result; c: config #5's chain resident on the 4 x 1 mesh, one upload of
+   the input and only the coherence back, within 1e-5 of phase 15c's
+   float64 chain and 1e-6 of phase 17a's, and its warm wall; d: the
+   sharded routines on one (250000, 64) recording against the port's unsharded functions on the
+   card (1e-5 of the maximum): apply_fir_time_sharded (order-400 FIR),
+   mtmconvol_time_sharded (64-sample Hann windows, power),
+   cwt_time_sharded (30 Morlet frequencies, 3.84 GB out), and
+   granger_sharded (wilson_sf_sharded inside) on phase 8's 64-channel CSD
+   (1e-6 absolute); each prints the unsharded and the sharded wall side
+   by side, the cost of the split on one card; e: where more than one
+   card is visible, each kernel launched on every card against its plain
+   version, and coh, ppc and the band-pass on a trial mesh over the cards
+   against the unsharded calls with both walls; else "not run: one card".
 Phases 9 to 16 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
 these paths run no CUDA kernel of the port. Phases 12 to 15 also print
@@ -158,14 +178,15 @@ package calls it only from its Pallas probe), error, times and bound (the
 least time the card could take: operations over the FP32 peak, FP64 for
 the Butterworth cascade, against bytes over the HBM rate, from this run's
 shapes); the Granger path launches none of them. The launches count
-phase 6's, 7's, 15's, 16's and 17a's main paths. The last line is
+phase 6's, 7's, 15's, 16's, 17a's and 18's main paths. The last line is
 ``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
 
     python3 chip_smoke.py --save-csd DIR
 
 also writes the 64-channel Granger CSD and the port's result there
 (``granger_csd64.npz``), for scripts/granger_compare_jax.py;
-``--jackknife-trials N`` sets phase 9's trial count.
+``--jackknife-trials N`` sets phase 9's trial count; ``--cards-only`` runs
+phases 1, 2 and 18e only (on a host with several cards).
 """
 
 import argparse
@@ -702,7 +723,7 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
         np.savez(os.path.join(save_csd, "granger_csd{}.npz".format(n_chan)), csd=seen["csd"],
                  G=G[0], **{k.replace(" ", "_").replace(".", ""): v for k, v in info.items()})
 
-    summary = {"info": info, "peak_gb": peak_gb}
+    summary = {"info": info, "peak_gb": peak_gb, "csd": seen["csd"]}
     if oracle:
         t0 = time.perf_counter()
         port_csd = torch.from_numpy(seen["csd"]).to("cuda", torch.complex128)
@@ -1036,13 +1057,13 @@ def granger_jackknife_phase(spt):
     # the replicate CSDs and the replicate Granger spectra the call forms
     seen, originals = {}, (jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife)
 
-    def replicates(ensemble):
-        seen["replicates"] = originals[0](ensemble)
+    def replicates(ensemble, **kwargs):
+        seen["replicates"] = originals[0](ensemble, **kwargs)
         return seen["replicates"]
 
-    def bias_var(direct, jack_rep):
+    def bias_var(direct, jack_rep, **kwargs):
         seen["jack_rep"] = jack_rep
-        return originals[1](direct, jack_rep)
+        return originals[1](direct, jack_rep, **kwargs)
 
     def stage(*args):
         t0 = time.perf_counter()
@@ -2327,7 +2348,7 @@ def extras_phase(spt, data, trl, coh64):
                 resident.RESIDENT_BUDGET = saved_budget
             del out
     summary = {"iir_launches": launches["sosfiltfilt"],
-               "csd_launches": launches["csd_accumulate_tiled"], "chain_err": err}
+               "csd_launches": launches["csd_accumulate_tiled"], "chain_err": err, "coh": got}
     for route, ws in walls.items():
         summary[route] = statistics.median(ws)
         print("17a chain warm wall, {}: median {:.4f} s of {} ({})".format(
@@ -2452,6 +2473,384 @@ def extras_phase(spt, data, trl, coh64):
     return summary
 
 
+#: phase 18's bars: each sharded result against the unsharded one on the
+#: card (absolute for coherence and PPC, relative to the unsharded
+#: maximum for the band-pass, the FIR, the STFT and the CWT, absolute for
+#: Granger); against float64 the bars of phases 6, 7 and 15c
+MESH_ABS_TOL = 1e-6
+MESH_REL_TOL = 1e-6
+HALO_REL_TOL = 1e-5
+MESH_GRANGER_ABS_TOL = 1e-6
+#: phase 18's CWT: 30 Morlet(6) frequencies from 10 to 150 Hz on the long
+#: recording (30 x 250000 x 64 complex64, 3.84 GB out); its STFT windows
+MESH_CWT_FREQS, MESH_STFT_NPERSEG = np.linspace(10.0, 150.0, 30), 64
+
+
+def routines_of(fn):
+    """`fn()` and the compute routines its frontends initialized, in
+    order."""
+    from syncopy_tpu_torch.engine.routine import ComputationalRoutine
+
+    routines, initialize = [], ComputationalRoutine.initialize
+
+    def keep(self, *args, **kwargs):
+        routines.append(self)
+        return initialize(self, *args, **kwargs)
+
+    ComputationalRoutine.initialize = keep
+    try:
+        return fn(), routines
+    finally:
+        ComputationalRoutine.initialize = initialize
+
+
+def shard_launches(cr, fused):
+    """The launches a routine's chunk plan calls for: every trial shard of
+    every chunk for a fused trial sum (an all-padding one with n_valid =
+    0), every shard that holds rows otherwise."""
+    return sum(sum(1 for nv in rows if fused or nv > 0)
+               for p in cr.chunk_plan for rows in p["shard_rows"])
+
+
+def timed_pair(name, solo, sharded):
+    """One more synchronized call of each of the two routes, unsharded
+    first; prints both walls. Returns them."""
+    import torch
+
+    walls = []
+    for fn in (solo, sharded):
+        clear_store()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        settle(res)
+        walls.append(time.perf_counter() - t0)
+        del res
+    print("18 {}: wall unsharded {:.4f} s, sharded {:.4f} s ({:+.1f}%)".format(
+        name, walls[0], walls[1], 100 * (walls[1] / walls[0] - 1)))
+    return walls
+
+
+def mesh_phase(spt, refs, chain_coh64, chain_coh, granger_csd):
+    """Phase 18: the mesh on one card. a: coh and ppc on the north-star
+    data on a 4-position trial mesh over cuda:0 and a 2 x 2 trial x
+    channel mesh: one kernel launch per trial shard and chunk, each
+    shard's valid rows, the bytes across the host link, within 1e-6 of
+    phases 6/7 and 1e-5 of their float64 results, walls of both routes;
+    b: the band-pass of phase 15b on the 4-position mesh, one Butterworth
+    launch per shard and chunk, within 1e-6 of the unsharded result; c:
+    config #5's chain resident on the mesh (one upload, only the
+    coherence back), within 1e-5 of phase 15c's float64 chain and 1e-6 of
+    phase 17a's resident chain; d: the five sharded routines on phase 15a's
+    (250000, 64) recording against the port's unsharded functions; e: coh
+    over the real cards where more than one is visible. `refs` maps
+    "coh" and "ppc" to phase 6's and 7's results and their float64
+    computations. Returns the launches of its main paths."""
+    import torch
+
+    from syncopy_tpu_torch.engine import routine
+    from syncopy_tpu_torch.engine.resident import DeferredArray
+    from syncopy_tpu_torch.ops import connectivity as pc
+    from syncopy_tpu_torch.ops import filtering as fb
+    from syncopy_tpu_torch.ops import stft as ps
+    from syncopy_tpu_torch.ops import wavelet as pw
+    from syncopy_tpu_torch.ops.windows import make_tapers
+
+    t_phase = time.perf_counter()
+    data, trl = north_star_data()
+    adata = spt.from_arrays(data, trl, FS)
+    meshes = {"4 x 1 on cuda:0": spt.make_mesh(n_trial=4, devices=["cuda:0"] * 4),
+              "2 x 2 on cuda:0": spt.make_mesh(n_trial=2, n_channel=2, devices=["cuda:0"] * 4)}
+    launches = {"csd_accumulate_tiled": 0, "ppc_accumulate_tiled": 0, "sosfiltfilt": 0}
+
+    # -- a. coh and ppc on the two meshes
+    for method, kernel, tol64 in (("coh", "csd_accumulate_tiled", COH_ABS_TOL),
+                                  ("ppc", "ppc_accumulate_tiled", PPC_ABS_TOL)):
+        ref, ref64 = refs[method]
+        for mesh_name, mesh in meshes.items():
+            clear_store()
+            zero_launches()
+            routine.reset_transfer_counts()
+            with spt.use_mesh(mesh):
+                out, crs = routines_of(lambda: spt.connectivityanalysis(
+                    adata, method=method, tapsmofrq=2))
+                torch.cuda.synchronize()
+            counts = routine.transfer_counts()
+            cr = crs[0]
+            expect = shard_launches(cr, fused=True)
+            got_launches = read_launches("18a {} on {}".format(method, mesh_name),
+                                         {kernel: expect})
+            launches[kernel] += got_launches[kernel]
+            n_shard = mesh.shape["trial"]
+            if expect != len(cr.chunk_plan[0]["rows"]) * n_shard:
+                raise AssertionError("18a: {} launches for {} chunks of {} shards".format(
+                    expect, len(cr.chunk_plan[0]["rows"]), n_shard))
+            got = np.asarray(out.data)[0]
+            diff = float(np.abs(got - ref).max())
+            err = float(np.abs(got - ref64).max())
+            upload = sum(p["chunk"] * len(p["rows"]) for p in cr.chunk_plan) * \
+                N_SAMPLES * N_CHANNELS * 4
+            print("18a {} on {}: {} launches ({} chunk(s) x {} trial shards), valid rows a "
+                  "shard {}; {}; max abs diff to the unsharded result {:.3e}, err vs float64 "
+                  "{:.3e}".format(method, mesh_name, expect, len(cr.chunk_plan[0]["rows"]),
+                                  n_shard, cr.chunk_plan[0]["shard_rows"],
+                                  transfer_text(counts), diff, err))
+            if counts["h2d"] != upload:
+                raise AssertionError("18a: uploaded {} B, expected {} B".format(
+                    counts["h2d"], upload))
+            if not (np.isfinite(got).all() and diff <= MESH_ABS_TOL and err < tol64):
+                raise AssertionError("18a: {} on {} off by {:.3e} (unsharded) / {:.3e} "
+                                     "(float64)".format(method, mesh_name, diff, err))
+            del out
+        with spt.use_mesh(meshes["4 x 1 on cuda:0"]):
+            sharded = lambda: spt.connectivityanalysis(adata, method=method, tapsmofrq=2)  # noqa
+            timed_pair("{} (4 x 1 mesh)".format(method), lambda: spt.connectivityanalysis(
+                adata, method=method, tapsmofrq=2, parallel=False), sharded)
+
+    # -- b. the band-pass on the 4-position mesh
+    mesh4 = meshes["4 x 1 on cuda:0"]
+    bp_call = lambda: spt.preprocessing(  # noqa: E731
+        adata, filter_class="but", filter_type="bp", freq=[30, 100], order=4)
+    clear_store()
+    solo = np.asarray(bp_call().data)
+    clear_store()
+    zero_launches()
+    with spt.use_mesh(mesh4):
+        out, crs = routines_of(bp_call)
+        torch.cuda.synchronize()
+    expect = shard_launches(crs[0], fused=False)
+    launches["sosfiltfilt"] += read_launches("18b band-pass on the 4 x 1 mesh",
+                                             {"sosfiltfilt": expect})["sosfiltfilt"]
+    got = np.asarray(out.data)
+    diff = float(np.abs(got - solo).max() / np.abs(solo).max())
+    print("18b band-pass on the 4 x 1 mesh: {} launches for {} chunk(s) (rows a shard {}); "
+          "max diff to the unsharded result {:.3e} of its maximum".format(
+              expect, len(crs[0].chunk_plan[0]["rows"]), crs[0].chunk_plan[0]["shard_rows"],
+              diff))
+    if not diff <= MESH_REL_TOL:
+        raise AssertionError("18b: band-pass off by {:.3e}".format(diff))
+    del out, solo, got
+    with spt.use_mesh(mesh4):
+        timed_pair("band-pass (4 x 1 mesh)", lambda: spt.preprocessing(
+            adata, filter_class="but", filter_type="bp", freq=[30, 100], order=4,
+            parallel=False), bp_call)
+
+    # -- c. config #5's chain, resident on the mesh
+    def chain():
+        bp = spt.preprocessing(adata, filter_class="but", filter_type="bp", freq=[30, 100],
+                               order=4)
+        rs = spt.resampledata(bp, resamplefs=250)
+        return bp, rs, spt.connectivityanalysis(rs, method="coh", tapsmofrq=2)
+
+    clear_store()
+    zero_launches()
+    routine.reset_transfer_counts()
+    with spt.use_mesh(mesh4):
+        (bp, rs, coh), crs = routines_of(chain)
+        torch.cuda.synchronize()
+    counts = routine.transfer_counts()
+    expect = {"sosfiltfilt": shard_launches(crs[0], fused=False),
+              "csd_accumulate_tiled": shard_launches(crs[2], fused=True)}
+    got_launches = read_launches("18c chain on the 4 x 1 mesh", expect)
+    launches["sosfiltfilt"] += got_launches["sosfiltfilt"]
+    launches["csd_accumulate_tiled"] += got_launches["csd_accumulate_tiled"]
+    for name, obj in (("band-passed", bp), ("resampled", rs)):
+        if not isinstance(obj._data, DeferredArray) or obj._device_resident.materialized:
+            raise AssertionError("18c: the {} data was read back".format(name))
+        shards = {len(r.shards) for r in obj._device_resident.records}
+        print("18c: {} records hold {} tensor(s) each".format(name, sorted(shards)))
+    if [cr.chunk_plan[0]["source"] for cr in crs] != ["upload", "resident", "resident"]:
+        raise AssertionError("18c: the chain did not consume its resident records")
+    one_upload = sum(p["chunk"] * len(p["rows"]) for p in crs[0].chunk_plan) * \
+        N_SAMPLES * N_CHANNELS * 4
+    got = np.asarray(coh.data)[0]
+    if counts["h2d"] != one_upload or counts["h2d_aux"] or counts["d2h"] != coh.data.nbytes:
+        raise AssertionError("18c: transfers {}; expected one upload of {} B".format(
+            counts, one_upload))
+    err = float(np.abs(got - chain_coh64).max())
+    diff = float(np.abs(got - chain_coh).max())
+    print("18c chain on the 4 x 1 mesh: {}; coherence err vs the float64 chain {:.3e}, max abs "
+          "diff to phase 17a's resident chain {:.3e}".format(transfer_text(counts), err, diff))
+    for cr in crs:
+        print("18c: {}".format(plan_text(cr)))
+    if not (err < COH_ABS_TOL and diff <= MESH_ABS_TOL):
+        raise AssertionError("18c: chain off by {:.3e} / {:.3e}".format(err, diff))
+    del bp, rs, coh
+    walls = []
+    for _ in range(EXTRAS_REPS):
+        clear_store()
+        t0 = time.perf_counter()
+        with spt.use_mesh(mesh4):
+            out = chain()
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    print("18c chain warm wall on the 4 x 1 mesh, resident: median {:.4f} s of {} ({})".format(
+        statistics.median(walls), len(walls), ", ".join("{:.4f}".format(w) for w in walls)))
+
+    # -- d. the five sharded routines on one long recording
+    clear_store()
+    y = np.random.default_rng(1).normal(size=(LONG_TRIAL_SAMPLES, N_CHANNELS)).astype("f4")
+    y_dev = torch.from_numpy(y).to("cuda")
+    dt = 1.0 / FS
+
+    def rel(sharded, whole):
+        got = sharded.gather("cuda")
+        return ((got - whole).abs().max() / whole.abs().max()).item()
+
+    fir = fb.design_wsinc("hamming", 400, np.array([8.0, 12.0]) / FS, "bp")
+    tapers = make_tapers("hann", None, MESH_STFT_NPERSEG, MESH_STFT_NPERSEG, FS)
+    scales = pw.Morlet(6).scale_from_period(1.0 / MESH_CWT_FREQS)
+    cases = [
+        ("apply_fir_time_sharded (order 400 band-pass)",
+         lambda: fb.apply_fir(y_dev[None], fir)[0],
+         lambda: fb.apply_fir_time_sharded(y_dev, fir, mesh4)),
+        ("mtmconvol_time_sharded (hann, {} samples, power)".format(MESH_STFT_NPERSEG),
+         lambda: ps.mtmconvol(y_dev[None], torch.from_numpy(tapers), MESH_STFT_NPERSEG, hop=1,
+                              n_time=LONG_TRIAL_SAMPLES, output="pow", keeptapers=False)[0],
+         lambda: ps.mtmconvol_time_sharded(y_dev, tapers, MESH_STFT_NPERSEG, mesh4,
+                                           output="pow", keeptapers=False)),
+        ("cwt_time_sharded (Morlet(6), 30 frequencies)",
+         lambda: pw.cwt(y_dev, pw.Morlet(6), scales, dt),
+         lambda: pw.cwt_time_sharded(y_dev, pw.Morlet(6), scales, dt, mesh4)),
+    ]
+    long_errs = {}
+    for name, solo_fn, sharded_fn in cases:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        whole = solo_fn()
+        sharded = sharded_fn()
+        torch.cuda.synchronize()
+        err = rel(sharded, whole)
+        long_errs[name] = err
+        print("18d {}: {} blocks of {}, max diff to the unsharded function {:.3e} of its "
+              "maximum; peak device memory {:.3f} GB".format(
+                  name, len(sharded), tuple(sharded[0].shape), err,
+                  torch.cuda.max_memory_allocated() / 1e9))
+        if not err < HALO_REL_TOL:
+            raise AssertionError("18d: {} off by {:.3e}".format(name, err))
+        del whole, sharded
+        torch.cuda.empty_cache()
+        timed_pair(name, solo_fn, sharded_fn)
+        torch.cuda.empty_cache()
+    del y_dev
+
+    csd = torch.from_numpy(granger_csd).to("cuda", torch.complex128)
+
+    def granger_solo():
+        reg = pc.regularize_csd(csd, cond_max=1e4, eps_max=1e-1)[0]
+        H, Sigma, conv, err, _ = pc.wilson_sf(reg, nIter=100, rtol=5e-6)
+        return pc.granger(reg, H, Sigma), bool(conv), float(err)
+
+    G0, conv0, err0 = granger_solo()
+    G1, info = pc.granger_sharded(csd, mesh=mesh4)
+    g_diff = (G1 - G0).abs().max().item()
+    print("18d granger_sharded (phase 8's 64-channel CSD, wilson_sf_sharded inside): info {}; "
+          "unsharded converged {} err {:.3e}; max abs diff to the unsharded route "
+          "{:.3e}".format(info, conv0, err0, g_diff))
+    if not (info["converged"] and conv0 and g_diff < MESH_GRANGER_ABS_TOL):
+        raise AssertionError("18d: granger_sharded off by {:.3e}".format(g_diff))
+    timed_pair("granger_sharded (64 channels)", lambda: granger_solo()[0],
+               lambda: pc.granger_sharded(csd, mesh=mesh4)[0])
+    del csd, G0, G1
+
+    # -- e. the real cards
+    if torch.cuda.device_count() > 1:
+        for kernel, count in cards_phase(spt, adata, refs["coh"][0]).items():
+            launches[kernel] += count
+    else:
+        print("18e coh over the real cards: not run: one card")
+    del data, adata
+    clear_store()
+    print("phase 18 calls and oracles: {:.1f} s".format(time.perf_counter() - t_phase))
+    return launches
+
+
+def cards_phase(spt, adata, coh_ref):
+    """Phase 18e: the mesh over the real cards. Each kernel launched on
+    every card from a thread whose current device is cuda:0, against its
+    plain version there (its library, loaded once per process, launches on
+    the tensor's device and that device's current stream); then coh, ppc
+    and phase 15b's band-pass on a trial mesh over all cards: one kernel
+    launch per trial shard (that holds rows, for the band-pass) and chunk,
+    within 1e-6 of the unsharded result (coh also of phase 6's), both
+    walls (median of 3). Returns the launches of its frontend calls."""
+    import torch
+
+    from syncopy_tpu_torch.engine.routine import ComputationalRoutine
+    from syncopy_tpu_torch.ops import csd_kernels as ck
+    from syncopy_tpu_torch.ops import filtering as fb
+    from syncopy_tpu_torch.ops import iir_kernels as ik
+    from syncopy_tpu_torch.ops import ppc_kernels as pk
+
+    n_cards = torch.cuda.device_count()
+    g = torch.Generator().manual_seed(0)
+    spec = torch.randn(600, 101, N_CHANNELS, dtype=torch.complex64, generator=g)
+    spec4 = torch.randn(300, 3, 101, N_CHANNELS, dtype=torch.complex64, generator=g)
+    x = torch.randn(40, N_SAMPLES, N_CHANNELS, generator=g)
+    sos = fb.butter_sos(4, [30.0, 100.0], "bp", FS)
+    for k in range(n_cards):
+        dev = torch.device("cuda", k)
+        with torch.cuda.device(0):
+            got = [ck.csd_accumulate_tiled(spec.to(dev), 555),
+                   pk.ppc_accumulate_tiled(spec4.to(dev), 277),
+                   ik.sosfilt_batch(x.to(dev), sos)]
+        want = [ck.csd_accumulate_tiled_plain(spec.to(dev), 555),
+                pk.ppc_accumulate_tiled_plain(spec4.to(dev), 277),
+                ik.sosfilt_batch_plain(x.to(dev), sos, True)]
+        errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+        print("18e cuda:{}: csd, ppc and sosfiltfilt kernels against their plain versions "
+              "{}".format(k, ", ".join("{:.3e}".format(e) for e in errs)))
+        if any(a.device != dev for a in got) or not max(errs) < KERNEL_REL_TOL:
+            raise AssertionError("18e cuda:{}: a kernel ran elsewhere or disagrees".format(k))
+    mesh = spt.make_mesh()
+    launches = {"csd_accumulate_tiled": 0, "ppc_accumulate_tiled": 0, "sosfiltfilt": 0}
+    for name, kernel, fused, call in (
+            ("coh", "csd_accumulate_tiled", True, lambda **kw: spt.connectivityanalysis(
+                adata, method="coh", tapsmofrq=2, **kw)),
+            ("ppc", "ppc_accumulate_tiled", True, lambda **kw: spt.connectivityanalysis(
+                adata, method="ppc", tapsmofrq=2, **kw)),
+            ("band-pass", "sosfiltfilt", False, lambda **kw: spt.preprocessing(
+                adata, filter_class="but", filter_type="bp", freq=[30, 100], order=4, **kw))):
+        clear_store()
+        solo = np.asarray(call(parallel=False).data)
+        clear_store()
+        zero_launches()
+        with spt.use_mesh(mesh):
+            out, crs = routines_of(call)
+            torch.cuda.synchronize()
+        expect = shard_launches(crs[0], fused)
+        launches[kernel] += read_launches("18e {} over {} cards".format(name, n_cards),
+                                          {kernel: expect})[kernel]
+        got = np.asarray(out.data)
+        diff = float(np.abs(got - solo).max())
+        if name == "band-pass":
+            diff /= float(np.abs(solo).max())
+        print("18e {} over the {} cards: {} launches (rows a shard {}), max diff to the "
+              "unsharded result {:.3e}{}".format(
+                  name, n_cards, expect, crs[0].chunk_plan[0]["shard_rows"], diff,
+                  ", to phase 6's {:.3e}".format(float(np.abs(got[0] - coh_ref).max()))
+                  if name == "coh" else ""))
+        if not diff <= MESH_ABS_TOL:
+            raise AssertionError("18e: {} over the cards off by {:.3e}".format(name, diff))
+        del out, solo, got
+        walls = {"unsharded": [], "over the cards": []}
+        for _ in range(3):
+            for route in walls:
+                clear_store()
+                t0 = time.perf_counter()
+                with spt.use_mesh(mesh if route == "over the cards" else None):
+                    res = call()
+                    torch.cuda.synchronize()
+                    settle(res)
+                walls[route].append(time.perf_counter() - t0)
+                del res
+        print("18e {} wall: {}".format(name, "; ".join(
+            "{} median {:.4f} s ({})".format(k, statistics.median(v), ", ".join(
+                "{:.4f}".format(w) for w in v)) for k, v in walls.items())))
+    return launches
+
+
 def chunk_trials_for_bp():
     """Trials per chunk of the band-pass routine at the north-star shape."""
     from syncopy_tpu_torch.engine.routine import chunk_trials
@@ -2472,6 +2871,8 @@ def main():
     parser.add_argument("--jackknife-trials", type=int, default=JACK_COH_TRIALS, metavar="N",
                         help="trials of the coherence jackknife (phase 9), at most {}".format(
                             N_TRIALS))
+    parser.add_argument("--cards-only", action="store_true",
+                        help="run phases 1, 2 and 18e (the mesh over the real cards) only")
     args = parser.parse_args()
 
     # -- 1. device ------------------------------------------------------- #
@@ -2518,6 +2919,17 @@ def main():
         threads, blocks = ck.kernel_occupancy(planar)
         print("{}: {} threads a block, {} blocks ({} warps) resident per SM".format(
             name, threads, blocks, threads * blocks // 32))
+    if args.cards_only:
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke --cards-only: one card visible", file=sys.stderr)
+            return 1
+        data, trl = north_star_data()
+        adata = spt.from_arrays(data, trl, FS)
+        coh_ref = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=2).data)[0]
+        cards_phase(spt, adata, coh_ref)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
+        return 0
     ppc_threads, ppc_blocks = pk.kernel_occupancy(3)
     ppc_warps = ppc_threads * ppc_blocks // 32
     print("ppc_accumulate_tiled (K = 3): {} threads a block, {} blocks ({} warps) resident "
@@ -2628,7 +3040,8 @@ def main():
     taper, taper_opt = process_taper(
         "hann", None, 2, None, keeptapers=False, foimax=FS / 2, samplerate=FS,
         nSamples=N_SAMPLES, output="pow")
-    coh_err = float(np.abs(got[0] - coherence_f64(data, taper, taper_opt)).max())
+    coh64 = coherence_f64(data, taper, taper_opt)
+    coh_err = float(np.abs(got[0] - coh64).max())
     print("main path: {} kernel launches for {} chunk(s); taper {} {}; coherence max abs "
           "err vs float64 {:.3e}".format(launches, n_chunks, taper, taper_opt, coh_err))
     if not coh_err < COH_ABS_TOL:
@@ -2676,7 +3089,8 @@ def main():
     if not np.isfinite(got).all():
         raise AssertionError("ppc not finite")
     diag_err = float(np.abs(got[0][:, np.arange(N_CHANNELS), np.arange(N_CHANNELS)] - 1).max())
-    ppc_abs_err = float(np.abs(got[0] - ppc_f64(data, taper, taper_opt)).max())
+    ppc64 = ppc_f64(data, taper, taper_opt)
+    ppc_abs_err = float(np.abs(got[0] - ppc64).max())
     print("ppc main path: {} kernel launches for {} chunk(s); diagonal - 1 {:.3e}; ppc max "
           "abs err vs float64 {:.3e}".format(ppc_launches, n_chunks, diag_err, ppc_abs_err))
     if not diag_err < 1e-5:
@@ -2711,9 +3125,11 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 8. granger main path --------------------------------------------- #
+    granger = {}
     for n_chan, oracle in ((N_CHANNELS, True), (2 * N_CHANNELS, False)):
         clear_store()
-        granger_phase(spt, n_chan, oracle, args.save_csd if n_chan == N_CHANNELS else None)
+        granger[n_chan] = granger_phase(spt, n_chan, oracle,
+                                        args.save_csd if n_chan == N_CHANNELS else None)
 
     # -- 9. coh jackknife --------------------------------------------------- #
     clear_store()
@@ -2759,12 +3175,20 @@ def main():
     clear_store()
     print("phase 17: {:.1f} s".format(time.perf_counter() - t0))
 
+    # -- 18. the mesh: four positions on the card, and the real cards ------ #
+    t0 = time.perf_counter()
+    mesh = mesh_phase(spt, {"coh": (np.asarray(coh.data)[0], coh64),
+                            "ppc": (np.asarray(ppc.data)[0], ppc64)},
+                      preproc["chain"]["coh64"], extras["coh"], granger[N_CHANNELS]["csd"])
+    print("phase 18: {:.1f} s".format(time.perf_counter() - t0))
+
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:140",
-        "launches": launches + synth["launches"] + extras["csd_launches"],
+        "launches": launches + synth["launches"] + extras["csd_launches"]
+        + mesh["csd_accumulate_tiled"],
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2788,7 +3212,7 @@ def main():
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/ppc_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:249",
-        "launches": ppc_launches,
+        "launches": ppc_launches + mesh["ppc_accumulate_tiled"],
         "max_abs_err": ppc_err,
         "ms": ppc_ms,
         "plain_ms": ppc_plain_ms,
@@ -2801,7 +3225,7 @@ def main():
         "source": "syncopy_tpu_torch/csrc/sosfilt.cu",
         "replaces": "syncopy_tpu/ops/filtering.py:181 (_biquad, lax.associative_scan; no "
                     "pallas_call)",
-        "launches": preproc["launches"] + extras["iir_launches"],
+        "launches": preproc["launches"] + extras["iir_launches"] + mesh["sosfiltfilt"],
         "max_abs_err": iir["max_abs_err"],
         "ms": iir["ms"],
         "plain_ms": iir["plain_ms"],

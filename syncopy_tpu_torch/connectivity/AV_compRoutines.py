@@ -160,8 +160,12 @@ class GrangerCausality(_AVRoutine):
     condition-number regularization, Wilson factorization and the Granger
     formula in complex128 on the device (reference
     AV_compRoutines.py:292-484). Convergence diagnostics reach
-    ``out.info`` through the engine's aux-info channel.
+    ``out.info`` through the engine's aux-info channel. On a mesh the
+    stage runs whole on its first position: jackknife replicates share one
+    regularization, taken over all of them in one chunk.
     """
+
+    trial_split = False
 
     valid_kws = ["rtol", "nIter", "cond_max"]
 

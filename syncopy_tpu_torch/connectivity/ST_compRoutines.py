@@ -18,7 +18,7 @@ from ..ops.connectivity import (
 )
 from ..ops.csd_kernels import csd_accumulate_tiled
 from ..ops.ppc_kernels import ppc_accumulate_tiled
-from ..ops.spectral import taper_segments
+from ..ops.spectral import detrend, taper_segments
 from ..ops.windows import make_tapers
 
 __all__ = ["CrossSpectra", "PPCSpectra", "SpectralDyadicProduct", "CrossCovariance"]
@@ -51,7 +51,13 @@ class CrossSpectra(_CrossRoutine):
     complex128 matmul), rounded to complex64 at the end. The JAX package's
     double-float32 DFT behind the same switch handles trials of up to 1024
     samples; this route has no such limit.
+
+    On a mesh's channel axis the tapered spectra (:meth:`channel_stage`)
+    are computed on the channel positions and gathered before the
+    channel products.
     """
+
+    channel_split = "cross"
 
     valid_kws = ["taper", "taper_opt", "tapsmofrq", "nTaper", "pad", "foi", "foilim",
                  "polyremoval", "demean_taper", "output"]
@@ -93,49 +99,63 @@ class CrossSpectra(_CrossRoutine):
         return spec
 
     @classmethod
-    def _exact_csd_sum(cls, batch, n_valid, cfg):
+    def _exact_csd_sum(cls, spec, n_valid):
         """(F, C, C) complex128 trial x taper CSD sum over the first
-        `n_valid` trials of `batch`, all in float64."""
-        tapered, K, nfft = cls._tapered_batch(batch, cfg, torch.float64)
+        `n_valid` trials of the float64 spectra `spec` (B, K, F, C)."""
         # where-mask (not multiply): padding rows may hold NaN
-        valid = torch.arange(tapered.shape[0], device=tapered.device) < n_valid
-        tapered = torch.where(valid[:, None, None, None], tapered, 0.0)
-        spec = cls._batch_spectra(tapered, nfft, cfg)  # (B, K, F, C)
-        B, _, F, C = spec.shape
+        valid = torch.arange(spec.shape[0], device=spec.device) < n_valid
+        spec = torch.where(valid[:, None, None, None], spec, 0.0)
+        B, K, F, C = spec.shape
         rows = spec.permute(2, 0, 1, 3).reshape(F, B * K, C)
         return torch.matmul(rows.transpose(1, 2), rows.conj()) / K
+
+    def channel_stage(self, batch, **cfg):
+        """(B, K, F, C) one-sided spectra of the detrended, tapered batch,
+        float64 with `exact_fft`: the per-channel stage."""
+        dtype = torch.float64 if cfg.get("exact_fft") else torch.float32
+        tapered, _, nfft = self._tapered_batch(batch, cfg, dtype)
+        return self._batch_spectra(tapered, nfft, cfg)
 
     def process_single_trial(self, trial, **cfg):
         return self.process_batch(trial[None], **cfg)[0]
 
     def process_batch(self, batch, **cfg):
-        """Single-trial cross spectra of a batch, ``(B, 1, F, C, C)``
-        complex64: one batched rfft and one batched ``bkfi,bkfj->bfij``
-        product a chunk (the (K, C) Gram of :meth:`_exact_csd_sum` per
-        trial and frequency), in float64 with `exact_fft`, where the base
-        class would call :meth:`process_single_trial` once a trial."""
-        dtype = torch.float64 if cfg.get("exact_fft") else torch.float32
-        tapered, K, nfft = self._tapered_batch(batch, cfg, dtype)
-        rows = self._batch_spectra(tapered, nfft, cfg).transpose(1, 2)  # (B, F, K, C)
-        CS = torch.matmul(rows.transpose(2, 3), rows.conj()) / K
+        return self.process_batch_staged(self.channel_stage(batch, **cfg), **cfg)
+
+    def process_batch_staged(self, spec, **cfg):
+        """Single-trial cross spectra of a batch's spectra, ``(B, 1, F, C,
+        C)`` complex64: one batched ``bkfi,bkfj->bfij`` product a chunk
+        (the (K, C) Gram of :meth:`_exact_csd_sum` per trial and
+        frequency), in float64 with `exact_fft`, where the base class would
+        call :meth:`process_single_trial` once a trial."""
+        rows = spec.transpose(1, 2)  # (B, F, K, C)
+        CS = torch.matmul(rows.transpose(2, 3), rows.conj()) / spec.shape[1]
         return CS[:, None].to(torch.complex64)
 
     def process_batch_sum(self, batch, n_valid, **cfg):
+        return self.process_batch_sum_staged(self.channel_stage(batch, **cfg), n_valid, **cfg)
+
+    def process_batch_sum_staged(self, spec, n_valid, **cfg):
         """
         Trial-summed cross spectra over the first `n_valid` trials of a
-        padded batch: the whole trial x taper stack collapses in one
-        tiled CSD accumulation (CUDA kernel on the card) instead of
+        padded batch's spectra: the whole trial x taper stack collapses in
+        one tiled CSD accumulation (CUDA kernel on the card) instead of
         materializing per-trial (nFreq, N, N) matrices. With `exact_fft`
         the sum is the float64 Gram of :meth:`_exact_csd_sum` instead.
         """
         if cfg.get("exact_fft"):
-            return self._exact_csd_sum(batch, n_valid, cfg)[None].to(torch.complex64)
-        tapered, K, nfft = self._tapered_batch(batch, cfg)
-        spec = self._batch_spectra(tapered, nfft, cfg)
-        B, _, F, C = spec.shape
+            return self._exact_csd_sum(spec, n_valid)[None].to(torch.complex64)
+        B, K, F, C = spec.shape
         slab = spec.reshape(B * K, F, C).contiguous()
         cs_sum = csd_accumulate_tiled(slab, n_valid * K) / K
         return cs_sum[None]
+
+    def channel_split_allowed(self):
+        """Not with `exact_fft`: the factorization-grade CSD keeps its
+        channels whole. A demeaned taper leaves the bins next to DC at
+        rounding noise, which the per-piece demeaning would reorder, and
+        Wilson amplifies that noise into Granger at ~1e-2."""
+        return not self.cfg.get("exact_fft")
 
 
 class PPCSpectra(CrossSpectra):
@@ -153,19 +173,17 @@ class PPCSpectra(CrossSpectra):
     per-trial CSDs in registers.
     """
 
-    def process_batch(self, batch, **cfg):
-        cs = super().process_batch(batch, **cfg)
+    def process_batch_staged(self, spec, **cfg):
+        cs = super().process_batch_staged(spec, **cfg)
         # exact-zero bins are 0/0, as in the JAX package: they cannot occur
         # in tapered spectra of real data off the padding, which the batch
         # path masks by n_valid
         return cs / cs.abs()
 
-    def process_batch_sum(self, batch, n_valid, **cfg):
-        tapered, _, nfft = self._tapered_batch(batch, cfg)
+    def process_batch_sum_staged(self, spec, n_valid, **cfg):
         # rfft along a middle axis leaves a (B, K, C, F)-strided result;
         # the kernel reads (B, K, F, C) in place
-        spec = self._batch_spectra(tapered, nfft, cfg).contiguous()
-        return ppc_accumulate_tiled(spec, n_valid)[None]
+        return ppc_accumulate_tiled(spec.contiguous(), n_valid)[None]
 
 
 class SpectralDyadicProduct(_CrossRoutine):
@@ -230,7 +248,11 @@ class CrossCovariance(_CrossRoutine):
     Single-trial cross-covariance at non-negative lags of AnalogData
     (reference ST_compRoutines.py:465-640). Output per trial ``(nLags, 1,
     N, N)`` float32; the lags ride on the time axis, offset 0 at lag 0.
+    On a mesh's channel axis the detrend (:meth:`channel_stage`) runs on
+    the channel positions.
     """
+
+    channel_split = "cross"
 
     valid_kws = ["norm", "polyremoval"]
 
@@ -244,20 +266,30 @@ class CrossCovariance(_CrossRoutine):
     def process_single_trial(self, trial, **cfg):
         return self.process_batch(trial[None], **cfg)[0]
 
+    def channel_stage(self, batch, **cfg):
+        """The detrended float32 batch: the per-channel stage."""
+        return detrend(batch.to(torch.float32), cfg["polyremoval"], dim=1)
+
     def process_batch(self, batch, **cfg):
-        return cross_covariance_batch(batch, polyremoval=cfg["polyremoval"], norm=cfg["norm"])
+        return self.process_batch_staged(self.channel_stage(batch, **cfg), **cfg)
+
+    def process_batch_staged(self, x, **cfg):
+        return cross_covariance_batch(x, polyremoval=None, norm=cfg["norm"])
 
     def process_batch_sum(self, batch, n_valid, **cfg):
+        return self.process_batch_sum_staged(self.channel_stage(batch, **cfg), n_valid, **cfg)
+
+    def process_batch_sum_staged(self, x, n_valid, **cfg):
         """The masked trial sum: the frequency-domain Gram and one inverse
         FFT (:func:`ccov_batch_sum`). `norm` divides each trial by its own
         standard deviations, which does not commute with the sum: then the
         per-trial outputs are summed (the frontend never averages normed
         trials: ``norm=bool(keeptrials)``)."""
         if cfg["norm"]:
-            per_trial = self.process_batch(batch, **cfg)
-            valid = torch.arange(batch.shape[0], device=batch.device) < n_valid
+            per_trial = self.process_batch_staged(x, **cfg)
+            valid = torch.arange(x.shape[0], device=x.device) < n_valid
             return torch.where(valid[:, None, None, None, None], per_trial, 0.0).sum(dim=0)
-        return ccov_batch_sum(batch, n_valid, polyremoval=cfg["polyremoval"])
+        return ccov_batch_sum(x, n_valid, polyremoval=None)
 
     def process_metadata(self, data, out):
         out.trialdefinition = self.default_trialdefinition(data, out)

@@ -120,8 +120,10 @@ def connectivityanalysis(
         (a warning says so otherwise). Ignored with a warning by the other
         methods.
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel and passed to every
+        engine pass: the single-trial stage shards its trials (and, for the
+        per-channel spectra, its channels) over the mesh; the averaged CSD,
+        the regularization and Wilson run on the mesh's first position.
 
     Returns
     -------
@@ -246,7 +248,7 @@ def connectivityanalysis(
     st_compRoutine.initialize(data, st_out._stackingDim, keeptrials=st_keeptrials)
 
     if st_keeptrials:
-        st_compRoutine.compute(data, st_out, log_dict=log_dict)
+        st_compRoutine.compute(data, st_out, log_dict=log_dict, parallel=parallel)
     else:
         # the trial average's normalization, fused onto the device-side
         # trial sum; csd keeps the average as it is
@@ -260,7 +262,8 @@ def connectivityanalysis(
             post = _corr_post
         else:
             post = lambda csd_avg: csd_avg  # noqa: E731
-        st_compRoutine.compute(data, st_out, log_dict=log_dict, post_device_fn=post)
+        st_compRoutine.compute(data, st_out, log_dict=log_dict, post_device_fn=post,
+                               parallel=parallel)
 
     replicates = None
     if jackknife:
@@ -270,19 +273,21 @@ def connectivityanalysis(
         if method == "granger":
             _jackknife_rank_note(st_compRoutine, nTrials, len(data.channel))
         # the replicates first: then the single-trial stack can go
-        replicates = trial_avg_replicates(st_out)
-        st_out = mean(st_out, dim="trials")
+        replicates = trial_avg_replicates(st_out, parallel=parallel)
+        st_out = mean(st_out, dim="trials", parallel=parallel)
 
     if method == "granger":
-        out = _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict)
+        out = _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict,
+                       parallel)
     elif jackknife:  # coh, in float64 until the bias is formed
-        out = _normalize_cross_spectra(st_out, output, log_dict, double=True)
+        out = _normalize_cross_spectra(st_out, output, log_dict, double=True,
+                                       parallel=parallel)
     elif two_pass_ppc:
-        out = _compute_ppc(st_out)
+        out = _compute_ppc(st_out, parallel)
     else:
         out = st_out
     if jackknife:
-        _attach_jackknife(out, replicates, method, output, log_dict)
+        _attach_jackknife(out, replicates, method, output, log_dict, parallel)
     if send_idx is not None and method == "coh":
         out = out.selectdata(channel_i=[str(c) for c in np.asarray(data.channel)[send_idx]])
         out = out.selectdata(channel_j=[str(c) for c in np.asarray(data.channel)[rec_idx]])
@@ -313,7 +318,8 @@ def _corr_post(ccov_avg):
     return normalize_ccov(ccov_avg)
 
 
-def _normalize_cross_spectra(csd, output, log_dict, keeptrials=False, double=False):
+def _normalize_cross_spectra(csd, output, log_dict, keeptrials=False, double=False,
+                             parallel=None):
     """Coherence of averaged CSDs through NormalizeCrossSpectra: one row
     (the direct estimate) or, with `keeptrials`, every jackknife
     replicate; in float64 with `double`."""
@@ -324,7 +330,7 @@ def _normalize_cross_spectra(csd, output, log_dict, keeptrials=False, double=Fal
     av.initialize(csd, out._stackingDim, keeptrials=keeptrials)
     if not keeptrials:
         av.pre_check()
-    av.compute(csd, out, log_dict=log_dict)
+    av.compute(csd, out, log_dict=log_dict, parallel=parallel)
     return out
 
 
@@ -342,7 +348,7 @@ def _jackknife_rank_note(st_compRoutine, nTrials, n_chan):
         )
 
 
-def _attach_jackknife(out, replicates, method, output, log_dict):
+def _attach_jackknife(out, replicates, method, output, log_dict, parallel=None):
     """The AV stage on the leave-one-out `replicates` (coherence, or
     Granger with the JAX package's host float64 retry when a replicate did
     not converge), then ``jack_bias`` and ``jack_var`` registered on `out`
@@ -356,12 +362,12 @@ def _attach_jackknife(out, replicates, method, output, log_dict):
 
     if method == "coh":
         jack_rep = _normalize_cross_spectra(replicates, output, log_dict, keeptrials=True,
-                                            double=True)
+                                            double=True, parallel=parallel)
     else:
         av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
         jack_rep = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
         av.initialize(replicates, jack_rep._stackingDim)
-        av.compute(replicates, jack_rep, log_dict=log_dict)
+        av.compute(replicates, jack_rep, log_dict=log_dict, parallel=parallel)
         if jack_rep.info.get("converged") is False and _GRANGER_HOST_FALLBACK:
             # pairing a good point estimate with a diverged replicate's
             # variance would attach unreliable error bars silently
@@ -372,7 +378,7 @@ def _attach_jackknife(out, replicates, method, output, log_dict):
                     float(jack_rep.info.get("max rel. err", float("nan"))))
             )
             jack_rep = _granger_host_replicates(replicates, av)
-    bias, variance = bias_var(out, jack_rep)
+    bias, variance = bias_var(out, jack_rep, parallel=parallel)
     single = np.complex64 if np.iscomplexobj(np.asarray(out.data)) else np.float32
     out.data = np.asarray(out.data).astype(single)
     out._register_dataset("jack_var", np.asarray(variance.data))
@@ -461,7 +467,7 @@ def _setup_cross_spectra(data, method, nSamples, foi, foilim, tapsmofrq, nTaper,
     )
 
 
-def _compute_ppc(st_out):
+def _compute_ppc(st_out, parallel=None):
     """PPC from the single-trial cross-spectra via the streamed resultant
     identity (replaces reference connectivity_analysis.py:624-667): the
     engine sums unit cross-spectra chunk-wise on the device, so host memory
@@ -473,7 +479,7 @@ def _compute_ppc(st_out):
     cr.initialize(st_out, out._stackingDim, keeptrials=False)
     n_trials = cr.numTrials
     cr.compute(st_out, out, log_dict={"method": "ppc", "nTrials": n_trials},
-               post_device_fn=PPCReduction.make_post(n_trials))
+               post_device_fn=PPCReduction.make_post(n_trials), parallel=parallel)
     out._log = str(st_out._log)
     out.log = "computed pairwise phase consistency over {} trials".format(n_trials)
     return out
@@ -507,7 +513,7 @@ def _granger_spectral_input_notes(data):
         )
 
 
-def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict):
+def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict, parallel=None):
     """The AV stage of Granger on the averaged CSD `st_out` (reference
     connectivity_analysis.py:276-277, :379-432, :466-476): pairwise with
     `channelcmb`; else the host float64 path if the rank gate finds the
@@ -532,7 +538,7 @@ def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict)
         out = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
         av.initialize(st_out, out._stackingDim)
         av.pre_check()
-        av.compute(st_out, out, log_dict=log_dict)
+        av.compute(st_out, out, log_dict=log_dict, parallel=parallel)
         if out.info.get("converged") is False and _GRANGER_HOST_FALLBACK:
             SPYWarning(
                 "device Wilson factorization did not converge (max rel. err {:.2e}) "

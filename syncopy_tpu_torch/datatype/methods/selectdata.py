@@ -8,7 +8,9 @@
 # through Dask; here the selection is a host gather plan applied per trial
 # (the arrays are small metadata-relative; heavy selections happen inside
 # compute pipelines where the Selector's plans are folded into device
-# batching instead).
+# batching instead). On a mesh (`parallel`) the copy of continuous data
+# is an engine pass instead, sharded over the mesh's trial axis, whose
+# result stays device-resident for the next analysis on that mesh.
 
 import numpy as np
 
@@ -63,7 +65,9 @@ def selectdata(
     clear : bool
         Remove an in-place selection.
     parallel : bool or None
-        Shard the materializing copy over the active mesh.
+        Shard the materializing copy over the mesh that
+        :func:`~syncopy_tpu_torch.parallel.mesh.resolve_parallel` gives
+        (None: the active mesh); without one the copy is a host gather.
 
     Returns
     -------
@@ -104,7 +108,7 @@ def selectdata(
     data.selection = select
     sel = data.selection
     try:
-        out = _apply_selection(data, sel)
+        out = _apply_selection(data, sel, parallel)
     finally:
         data._selection = prior
 
@@ -114,25 +118,31 @@ def selectdata(
     return out
 
 
-def _apply_selection(data, sel):
-    """Materialize the selection into a fresh object of the same class."""
+def _apply_selection(data, sel, parallel=False):
+    """Materialize the selection into a fresh object of the same class:
+    through the engine on the mesh `parallel` resolves to (continuous
+    data only), else a host gather."""
+    from ...parallel.mesh import resolve_parallel
+    from ...statistics.timelockanalysis import _TimeLockCopy
+
     cls = data.__class__
     out = cls.__new__(cls)
     cls.__init__(out)
     out._dimord = data.dimord
 
-    arrs = [sel.select_trial_array(data, k) for k in range(len(sel.trial_ids))]
-    if not arrs:
+    if len(sel.trial_ids) == 0:
         raise SPYValueError(legal="non-empty selection", varname="select")
-
-    if "sample" in data.dimord:
-        # discrete: rows are filtered, trialdefinition keeps sample bounds
-        out.data = np.concatenate(arrs, axis=0)
-        out._trialdefinition = np.array(sel.trialdefinition)
+    mesh = None if "sample" in data.dimord else resolve_parallel(parallel)
+    if mesh is not None:
+        cr = _TimeLockCopy()  # the chunked identity pass, bit-exact
+        cr.initialize(data, data._stackingDim, keeptrials=True)
+        cr.compute(data, out, parallel=parallel)
     else:
-        sdim = data._stackingDim
-        out.data = np.concatenate(arrs, axis=sdim)
-        out._trialdefinition = np.array(sel.trialdefinition)
+        # discrete data: rows are filtered; the trialdefinition keeps the
+        # sample bounds either way
+        arrs = [sel.select_trial_array(data, k) for k in range(len(sel.trial_ids))]
+        out.data = np.concatenate(arrs, axis=0 if "sample" in data.dimord else data._stackingDim)
+    out._trialdefinition = np.array(sel.trialdefinition)
 
     # dimensional properties, selection applied
     if getattr(data, "samplerate", None) is not None:

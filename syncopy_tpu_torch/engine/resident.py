@@ -30,26 +30,63 @@
 # consumable downstream until then); then the oldest pending resident is
 # read back and its tensors dropped.
 #
-# Differences from the JAX package: a record is the chunk's valid rows,
-# ``(n_valid, *trial_shape)`` in the result's own dtype (complex stays
-# complex), with no (N, 128) readback layout and no (re, im) encoding.
+# Differences from the JAX package: a record is the chunk's valid rows in
+# the result's own dtype (complex stays complex), with no (N, 128) readback
+# layout and no (re, im) encoding. A record made on a mesh holds one tensor
+# per trial shard, on that shard's device (the JAX package's one sharded
+# array); the budget counts every shard, an eviction frees them all and the
+# readback writes them in trial order.
 
 import weakref
 from collections import namedtuple
 
 import numpy as np
+import torch
 
-__all__ = ["DeviceResident", "DeferredArray", "Record", "materialize_all", "RESIDENT_BUDGET"]
+__all__ = ["DeviceResident", "DeferredArray", "Record", "materialize_all", "RESIDENT_BUDGET",
+           "shard_positions", "take_rows"]
 
 #: device bytes that resident results may hold, read back or not; 0 turns
 #: device-resident outputs off
 RESIDENT_BUDGET = 6 * 1024**3
 
-#: one compute chunk kept on the device:
+#: one compute chunk kept on the device(s):
 #:   positions    tuple of the selected-trial positions of its rows
-#:   dev          tensor (len(positions), *trial_shape)
+#:   shards       tuple of tensors ``(n_i, *trial_shape)``, one per trial
+#:                shard that holds rows, in shard order (the chunk's
+#:                positions in order, split); one tensor without a mesh
 #:   trial_shape  per-trial output shape
-Record = namedtuple("Record", ["positions", "dev", "trial_shape"])
+#:   chunk        the producer's padded chunk size (a multiple of its
+#:                trial shards)
+Record = namedtuple("Record", ["positions", "shards", "trial_shape", "chunk"])
+
+
+def shard_positions(rec):
+    """``[(shard tensor, its positions), ...]`` of a record, in order."""
+    out, start = [], 0
+    for shard in rec.shards:
+        out.append((shard, rec.positions[start : start + shard.shape[0]]))
+        start += shard.shape[0]
+    return out
+
+
+def take_rows(rec, a, b, device):
+    """Rows ``a .. b`` of a record (its shards' rows in order) as one
+    tensor on `device`: a slice where they lie in one shard on `device`
+    (no copy), else the slices copied there and concatenated."""
+    pieces, start = [], 0
+    for shard in rec.shards:
+        n = shard.shape[0]
+        lo, hi = max(a, start), min(b, start + n)
+        if lo < hi:
+            pieces.append(shard[lo - start : hi - start])
+        start += n
+    if not pieces:  # no rows
+        shard = rec.shards[0]
+        return torch.empty((0,) + tuple(shard.shape[1:]), dtype=shard.dtype, device=device)
+    from ..parallel.mesh import gather_shards
+
+    return gather_shards(pieces, device)
 
 _REGISTRY = []  # weak references to DeviceResident, in creation order
 
@@ -118,7 +155,8 @@ class DeviceResident:
         self._materializing = False
         #: the owner's cache token at seal time; consumption needs a match
         self.sealed_token = None
-        self.nbytes_device = sum(r.dev.numel() * r.dev.element_size() for r in self.records)
+        self.nbytes_device = sum(t.numel() * t.element_size()
+                                 for r in self.records for t in r.shards)
         _REGISTRY.append(weakref.ref(self))
 
     @property
@@ -209,8 +247,9 @@ class DeviceResident:
 
         from .routine import _count_transfer
 
-        rec = next(r for r in self.records if pos in r.positions)
-        t = rec.dev[rec.positions.index(pos)]
+        t = next(shard[list(positions).index(pos)]
+                 for r in self.records for shard, positions in shard_positions(r)
+                 if pos in positions)
         if magnitude and t.is_complex():
             t = t.abs()
         if factor > 1:

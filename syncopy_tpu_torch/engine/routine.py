@@ -25,11 +25,16 @@
 #   - the HDF5 spill of a result over the host budget (reference
 #     :213-244);
 #   - the out-of-memory half of the dispatch recovery: evict the store
-#     and the residents, then retry once (reference :84-118).
+#     and the residents, then retry once (reference :84-118);
+#   - the mesh (reference :752-768, :875-1000): each chunk's rows split
+#     into one contiguous block per trial shard, each with its own
+#     `n_valid`, computed on its position's device; trial sums combined on
+#     the mesh's first position in shard order (JAX's psum); a routine that
+#     declares `channel_split` splits its channels over the channel axis.
 # Left out, as workarounds for the TPU runtime: the (re, im) complex
 # encoding, the readback relayout, the transient-error retries and the
-# compile back-off, f16 transfer/readback, the device constant cache (the
-# remote compile's payload limit) and the mesh.
+# compile back-off, f16 transfer/readback and the device constant cache
+# (the remote compile's payload limit).
 
 import sys
 import warnings
@@ -37,6 +42,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..parallel.mesh import (Mesh, device_context, gather_shards, pad_to_multiple,
+                             resolve_parallel, shard_batch)
 from ..shared.errors import SPYError, SPYValueError
 from ..shared.log import get_logger
 from . import resident as _resident
@@ -190,6 +197,12 @@ def _torch_dtype(dtype):
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def _shard_rows(n_valid, rows, n_shard):
+    """The valid rows of each of `n_shard` blocks of `rows` rows in a
+    chunk of `n_valid` real trials, clipped to ``[0, rows]``."""
+    return [min(max(n_valid - i * rows, 0), rows) for i in range(n_shard)]
+
+
 def _readback_rows(host_out, res, chunk_pos, offsets, sdim):
     """Copy one chunk's device results `res` into `host_out`: one copy
     into the rows of consecutive trials stacked on axis 0 of an
@@ -216,8 +229,9 @@ def _materialize_resident(resident):
     stacking dim 0."""
     host_out = _allocate_host_output(resident.shape, resident.dtype, resident._owner())
     for rec in resident.records:
-        _readback_rows(host_out, rec.dev, list(rec.positions), resident.offsets,
-                       resident.stackingdim)
+        for shard, positions in _resident.shard_positions(rec):
+            _readback_rows(host_out, shard, list(positions), resident.offsets,
+                           resident.stackingdim)
     return host_out
 
 
@@ -312,6 +326,28 @@ class ComputationalRoutine:
     dict of diagnostics. Its keys in :attr:`aux_per_trial` hold one value
     per trial and are collected by selected-trial position; other keys
     are per chunk. After ``compute`` they are in ``self.aux_info``.
+
+    On a mesh with more than one channel position, :attr:`channel_split`
+    says how the routine's input channels split (only where they divide
+    evenly; None keeps them whole):
+
+    ``"separable"``
+        The per-trial work is independent per channel: each channel
+        position computes its slice of the batch, and the results are
+        concatenated on the trial shard's first position along the last
+        axis, where such a routine's output keeps its channels. Info
+        dicts of boolean flags combine by "any".
+
+    ``"cross"``
+        ``channel_stage(batch, **cfg)`` is the per-channel stage (channels
+        on its last axis); it runs on the channel positions, its pieces
+        are gathered on the trial shard's first position and
+        ``process_batch_staged(stage, *aux, **cfg)`` or
+        ``process_batch_sum_staged(stage, n_valid, *aux, **cfg)`` finish
+        there, as ``process_batch`` and ``process_batch_sum`` do on the
+        whole batch.
+
+    :meth:`channel_split_allowed` may keep a run's channels whole.
     """
 
     outputShape = None
@@ -319,6 +355,13 @@ class ComputationalRoutine:
 
     #: aux-info keys with one value per trial (see the class docstring)
     aux_per_trial = frozenset()
+
+    #: False keeps a chunk whole on the mesh's first position: for a
+    #: routine whose rows depend on each other within a chunk
+    trial_split = True
+
+    #: how a mesh's channel axis splits the routine (see the class docstring)
+    channel_split = None
 
     def __init__(self, **cfg):
         self.cfg = dict(cfg)
@@ -356,6 +399,11 @@ class ComputationalRoutine:
         info = {k: torch.stack([torch.as_tensor(r[1][k]) for r in results], dim=0)
                 for k in results[0][1]}
         return torch.stack([r[0] for r in results], dim=0), info
+
+    def channel_split_allowed(self):
+        """False keeps this run's channels whole on a mesh with channel
+        positions (see :attr:`channel_split`)."""
+        return True
 
     def process_metadata(self, data, out):
         raise NotImplementedError
@@ -530,20 +578,32 @@ class ComputationalRoutine:
     # compute (reference computational_routine.py:513-1035)
     # ------------------------------------------------------------------ #
 
-    def compute(self, data, out, log_dict=None, post_device_fn=None, device_resident=True):
+    def compute(self, data, out, log_dict=None, post_device_fn=None, device_resident=True,
+                parallel=None):
         """
-        Run the routine on ``self.device`` (one device: the JAX engine's
-        mesh has no counterpart here). `post_device_fn` is an optional
-        device-side transform applied to the trial average when
-        ``keeptrials=False`` (e.g. the coherence normalization); it may
-        change the output's dtype.
+        Run the routine on ``self.device``, or over the mesh that
+        `parallel` resolves to (:func:`~syncopy_tpu_torch.parallel.mesh.
+        resolve_parallel`: None takes the active mesh): each chunk's rows
+        split into one block per trial shard, computed on that shard's
+        device, and trial sums combined on the mesh's first position.
+        `post_device_fn` is an optional device-side transform applied to
+        the trial average when ``keeptrials=False`` (e.g. the coherence
+        normalization); it may change the output's dtype.
 
         With `device_resident` (the default) a ``keeptrials=True`` result
-        that fits ``resident.RESIDENT_BUDGET`` stays on the device with a
-        deferred readback (engine/resident.py); False reads it back.
+        that fits ``resident.RESIDENT_BUDGET`` stays on the device(s) with
+        a deferred readback (engine/resident.py); False reads it back.
         """
         if self.buckets is None:
             raise SPYError("call initialize() before compute()")
+        self.mesh = resolve_parallel(parallel)
+        if self.mesh is not None and self.trial_split:
+            grid = self.mesh.devices
+        else:
+            grid = np.empty((1, 1), dtype=object)
+            grid[0, 0] = self.device if self.mesh is None else self.mesh.device
+        #: the (trial shard, channel position) grid of devices of this run
+        self._grid = grid
         self._post_fn = post_device_fn
         self.aux_info = {}
         self._aux_per_trial = {}
@@ -611,16 +671,20 @@ class ComputationalRoutine:
                         int(self.device_bytes_per_trial(shp, out_shp, np.dtype(out_dt))))
         return chunk_trials(per_trial, n_positions, self._chunk_budget)
 
-    def _upload_aux(self, arr, c0, n_valid, n_rows):
-        """Rows ``c0 .. c0 + n_valid`` of one auxiliary input on the device,
-        zero-padded to `n_rows`. A broadcast view (leading stride 0) uploads
-        one row, expanded on the device."""
+    def _upload_aux(self, arr, c0, n_valid, n_rows, device=None):
+        """Rows ``c0 .. c0 + n_valid`` of one auxiliary input on `device`
+        (default ``self.device``), zero-padded to `n_rows`. A broadcast
+        view (leading stride 0) uploads one row, expanded on the device."""
+        device = self.device if device is None else device
+        if n_valid == 0:
+            return torch.zeros((n_rows,) + arr.shape[1:], dtype=_torch_dtype(arr.dtype),
+                               device=device)
         if arr.shape[0] and arr.strides[0] == 0:
-            row = torch.from_numpy(np.array(arr[c0 : c0 + 1])).to(self.device)
+            row = torch.from_numpy(np.array(arr[c0 : c0 + 1])).to(device)
             rows = row.expand((n_valid,) + row.shape[1:])
         else:
             row = torch.from_numpy(np.array(arr[c0 : c0 + n_valid]))
-            rows = row.to(self.device)
+            rows = row.to(device)
         _count_transfer("h2d_aux", row.numel() * row.element_size())
         if n_rows > n_valid:
             pad = torch.zeros((n_rows - n_valid,) + rows.shape[1:], dtype=rows.dtype,
@@ -652,15 +716,20 @@ class ComputationalRoutine:
 
     def _plan_resident_consume(self, data):
         """``{bucket shape: [Record, ...]}`` when `data`'s payload is a
-        sealed device-resident result on this routine's device, no
+        sealed device-resident result on this run's device type, no
         selection is active and the records cover every bucket in order;
-        None otherwise (the host path)."""
+        None otherwise (the host path). A producer chunk that is not a
+        multiple of this run's trial shards also takes the host path (the
+        JAX engine's rule, reference :887)."""
         res = getattr(data, "_device_resident", None)
         if res is None or not res.consumable_by(data) or data.selection is not None:
             return None
+        n_shard = self._grid.shape[0]
         by_shape = {}
         for rec in res.records:
-            if rec.dev.device != self.device:
+            if any(t.device.type != self.device.type for t in rec.shards):
+                return None
+            if rec.chunk % n_shard:
                 return None
             by_shape.setdefault(rec.trial_shape, []).append(rec)
         plan = {}
@@ -673,31 +742,44 @@ class ComputationalRoutine:
 
     def _resident_chunks(self, records, chunk, pad):
         """Chunks over the producer's resident records: a record larger
-        than `chunk` is split on the device; with `pad` each chunk is
-        zero-padded to `chunk` rows (the fused trial sum's fixed chunk).
-        Yields ``(device batch, positions)``."""
+        than `chunk` is split on the device, and each chunk's rows go to
+        this run's trial shards in blocks of ``chunk / n_shard`` rows,
+        copied device to device where a block lies elsewhere (a block that
+        is one whole record shard on its device is taken as it is); with
+        `pad` each block is zero-padded to its full rows (the fused trial
+        sum's fixed chunk). Yields ``(list of device blocks, positions)``."""
+        n_shard = self._grid.shape[0]
+        rows = chunk // n_shard
         for rec in records:
             for s0 in range(0, len(rec.positions), chunk):
-                sub = rec.dev[s0 : s0 + chunk]
-                if pad and sub.shape[0] < chunk:
-                    zeros = torch.zeros((chunk - sub.shape[0],) + tuple(sub.shape[1:]),
-                                        dtype=sub.dtype, device=sub.device)
-                    sub = torch.cat([sub, zeros], dim=0)
-                yield sub, list(rec.positions[s0 : s0 + chunk])
+                n = min(chunk, len(rec.positions) - s0)
+                blocks = []
+                for i, nv in enumerate(_shard_rows(n, rows, n_shard)):
+                    device = self._grid[i, 0]
+                    a = s0 + i * rows
+                    block = _resident.take_rows(rec, a, a + nv, device)
+                    if pad and nv < rows:
+                        zeros = torch.zeros((rows - nv,) + tuple(block.shape[1:]),
+                                            dtype=block.dtype, device=device)
+                        block = torch.cat([block, zeros], dim=0)
+                    blocks.append(block)
+                yield blocks, list(rec.positions[s0 : s0 + n])
 
     def _host_chunks(self, data, positions, shp, chunk, plan):
-        """Chunks over the host payload: gather, pad to `chunk` rows and
-        upload, with the uploads kept in the device trial store for later
-        analyses of the same (selected) payload; `plan` (the bucket's
-        chunk-plan entry) records which of the two it was. Yields
-        ``(device batch, positions)``."""
+        """Chunks over the host payload: gather, pad to `chunk` rows, split
+        into one block per trial shard and upload each to its shard's
+        device, with the uploads kept in the device trial store for later
+        analyses of the same (selected) payload on the same mesh; `plan`
+        (the bucket's chunk-plan entry) records which of the two it was.
+        Yields ``(list of device blocks, positions)``."""
         in_dtype = np.dtype(data.data.dtype)
+        grid = self._grid
         cache_key = (
             getattr(data, "_cache_token", None),
             self._selection_fingerprint(data),
             shp,
             chunk,
-            str(self.device),
+            Mesh(grid).key,
             str(in_dtype),
             tuple(positions),
         )
@@ -714,21 +796,75 @@ class ComputationalRoutine:
             if len(chunk_pos) < chunk:
                 pad = np.zeros((chunk - len(chunk_pos),) + batch.shape[1:], batch.dtype)
                 batch = np.concatenate([batch, pad], axis=0)
-            batch = np.ascontiguousarray(batch)
             with warnings.catch_warnings():
                 # a view of a read-back resident payload is read-only; the
-                # tensor is only read
+                # tensors are only read
                 warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-                dev_batch = torch.from_numpy(batch).to(self.device)
+                shards, _ = shard_batch(batch, Mesh(grid))
+            blocks = [pieces[0] for pieces in shards]
             _count_transfer("h2d", batch.nbytes)
             if built is not None:
-                built.append(dev_batch)
+                built.append(blocks)
                 if len(built) * batch.nbytes > DEVICE_CACHE_BYTES:
                     built = None  # the store cannot hold the bucket: keep no chunk
-            yield dev_batch, chunk_pos
+            yield blocks, chunk_pos
         if built:
-            nbytes = sum(c.numel() * c.element_size() for c in built)
+            nbytes = sum(b.numel() * b.element_size() for blocks in built for b in blocks)
             _device_cache_put(cache_key, built, nbytes)
+
+    def _merge_channel_info(self, infos, device):
+        """One info dict from the channel pieces' info dicts: boolean flags
+        combine by "any"; other values cannot be combined and raise."""
+        merged = {}
+        for k in infos[0]:
+            vals = [torch.as_tensor(info[k]).to(device) for info in infos]
+            if vals[0].dtype != torch.bool:
+                raise SPYError(
+                    "{}: info key '{}' of a channel-split routine is not a flag".format(
+                        self.__class__.__name__, k))
+            merged[k] = torch.stack(vals, dim=0).any(dim=0)
+        return merged
+
+    def _shard_call(self, i, block, n_valid, aux, fused, chan_axis):
+        """One trial shard's result on its first position: the fused sum of
+        ``process_batch_sum`` over `block`'s first `n_valid` rows, or
+        ``process_batch`` of `block`, with the channels split over the
+        shard's channel positions where the routine declares it
+        (:attr:`channel_split`) and they divide evenly."""
+        devices = list(self._grid[i])
+        home = devices[0]
+        split = len(devices) > 1 and chan_axis is not None and \
+            block.shape[chan_axis] % len(devices) == 0 and self.channel_split_allowed()
+        cfg = self.cfg
+        if split and self.channel_split == "cross":
+            stages = []
+            for piece, device in zip(block.chunk(len(devices), dim=chan_axis), devices):
+                with device_context(device):
+                    stages.append(self.channel_stage(piece.to(device).contiguous(), **cfg))
+            stage = gather_shards(stages, home, dim=-1)
+            with device_context(home):
+                if fused:
+                    return self.process_batch_sum_staged(stage, n_valid, *aux, **cfg)
+                return self.process_batch_staged(stage, *aux, **cfg)
+        if not (split and self.channel_split == "separable"):
+            with device_context(home):
+                if fused:
+                    return self.process_batch_sum(block, n_valid, *aux, **cfg)
+                return self.process_batch(block, *aux, **cfg)
+        results = []
+        for piece, device in zip(block.chunk(len(devices), dim=chan_axis), devices):
+            piece = piece.to(device).contiguous()
+            piece_aux = [a.to(device) for a in aux]
+            with device_context(device):
+                if fused:
+                    results.append(self.process_batch_sum(piece, n_valid, *piece_aux, **cfg))
+                else:
+                    results.append(self.process_batch(piece, *piece_aux, **cfg))
+        with device_context(home):
+            if isinstance(results[0], tuple):
+                res = gather_shards([r[0] for r in results], home, dim=-1)
+                return res, self._merge_channel_info([r[1] for r in results], home)
+            return gather_shards(results, home, dim=-1)
 
     def _run(self, data, out):
         sdim = self.out_stackingdim
@@ -744,7 +880,8 @@ class ComputationalRoutine:
         if consume_plan is None:
             if isinstance(getattr(data, "_data", None), DeferredArray):
                 # resident but not consumable here (a selection, a mutation,
-                # a shape or device mismatch): read it back once
+                # a shape, device type or shard-count mismatch): read it back
+                # once
                 data._data._ensure()
             if getattr(self, "_fast_plan", None) is None:
                 # the plan of initialize() saw a DeferredArray, or this
@@ -752,9 +889,14 @@ class ComputationalRoutine:
                 # path's vectorized gather on the payload now in place
                 self._fast_plan = self._plan_fast_gather(data)
 
+        grid = self._grid
+        n_shard = grid.shape[0]
+        # the batch axis of the input's channels, for a channel split
+        chan_axis = data.dimord.index("channel") + 1 if "channel" in data.dimord else None
         out_dtype = _torch_dtype(self.dtype) if self.keeptrials else None
         #: per bucket: its trial shape, chunk size, where its chunks came
-        #: from ("resident", "upload" or "trial store") and their valid rows
+        #: from ("resident", "upload" or "trial store"), their valid rows
+        #: and each chunk's valid rows per trial shard
         self.chunk_plan = []
         records = []
         acc = None  # on-device sum over trials for keeptrials=False
@@ -764,7 +906,11 @@ class ComputationalRoutine:
             aux_all = tuple(np.asarray(a) for a in self.per_trial_inputs(data, positions))
             aux_bytes = sum(int(np.prod(a.shape[1:])) * a.itemsize for a in aux_all)
             chunk = self._chunk_size(shp, len(positions), itemsize, aux_bytes)
-            plan = {"shape": shp, "chunk": chunk, "source": "resident", "rows": []}
+            # a whole number of rows for every trial shard (reference :943-950)
+            chunk = pad_to_multiple(max(chunk, n_shard), n_shard)
+            rows = chunk // n_shard
+            plan = {"shape": shp, "chunk": chunk, "source": "resident", "rows": [],
+                    "shard_rows": []}
             self.chunk_plan.append(plan)
             if consume_plan is not None:
                 source = self._resident_chunks(consume_plan[shp], chunk, pad=fused_sum)
@@ -772,46 +918,65 @@ class ComputationalRoutine:
                 source = self._host_chunks(data, positions, shp, chunk, plan)
             pos_index = {p: i for i, p in enumerate(positions)}
             out_shp = self.out_per_trial_shapes[shp][0]
-            for dev_batch, chunk_pos in source:
+            for blocks, chunk_pos in source:
                 n_valid = len(chunk_pos)
                 c0 = pos_index[chunk_pos[0]]
+                shard_valid = _shard_rows(n_valid, rows, n_shard)
                 plan["rows"].append(n_valid)
-                if fused_sum:
+                plan["shard_rows"].append(shard_valid)
+                part, shards = None, []
+                for i, (block, nv) in enumerate(zip(blocks, shard_valid)):
+                    device = grid[i, 0]
+                    if fused_sum:
+                        # every shard launches, an all-padding one with
+                        # n_valid = 0
+                        res = _dispatch_with_recovery(
+                            lambda: self._shard_call(
+                                i, block, nv,
+                                [self._upload_aux(a, c0 + i * rows, nv, rows, device)
+                                 for a in aux_all],
+                                True, chan_axis),
+                            what="{} chunk dispatch".format(name))
+                        part = res if part is None else part + res.to(part.device)
+                        continue
+                    if nv == 0:
+                        continue
                     res = _dispatch_with_recovery(
-                        lambda: self.process_batch_sum(
-                            dev_batch, n_valid,
-                            *[self._upload_aux(a, c0, n_valid, chunk) for a in aux_all],
-                            **self.cfg),
+                        lambda: self._shard_call(
+                            i, block[:nv],
+                            nv, [self._upload_aux(a, c0 + i * rows, nv, nv, device)
+                                 for a in aux_all],
+                            False, chan_axis),
                         what="{} chunk dispatch".format(name))
-                    acc = res if acc is None else acc + res
-                    continue
-                res = _dispatch_with_recovery(
-                    lambda: self.process_batch(
-                        dev_batch[:n_valid],
-                        *[self._upload_aux(a, c0, n_valid, n_valid) for a in aux_all],
-                        **self.cfg),
-                    what="{} chunk dispatch".format(name))
-                if isinstance(res, tuple):
-                    res, aux_info = res
-                    self._accumulate_aux(aux_info, chunk_pos)
-                if not self.keeptrials:
-                    res = res.sum(dim=0)
-                    acc = res if acc is None else acc + res
-                elif resident_out:
-                    # the host route rounds to the output dtype on the way
-                    # back and hands the next routine a contiguous batch; the
-                    # record does the same, so a consumer computes the same
-                    # values on either route (and a view pins no larger
-                    # buffer)
-                    res = res.to(out_dtype).reshape((n_valid,) + tuple(out_shp)).contiguous()
-                    records.append(Record(tuple(chunk_pos), res, tuple(out_shp)))
-                else:
-                    _readback_rows(host_out, res, chunk_pos, offsets, sdim)
+                    shard_pos = chunk_pos[i * rows : i * rows + nv]
+                    if isinstance(res, tuple):
+                        res, aux_info = res
+                        self._accumulate_aux(aux_info, shard_pos)
+                    if not self.keeptrials:
+                        res = res.sum(dim=0)
+                        part = res if part is None else part + res.to(part.device)
+                    elif resident_out:
+                        # the host route rounds to the output dtype on the
+                        # way back and hands the next routine a contiguous
+                        # batch; the record does the same, so a consumer
+                        # computes the same values on either route (and a
+                        # view pins no larger buffer)
+                        shards.append(
+                            res.to(out_dtype).reshape((nv,) + tuple(out_shp)).contiguous())
+                    else:
+                        _readback_rows(host_out, res, shard_pos, offsets, sdim)
+                if part is not None:
+                    # the trial shards' partials, summed on the mesh's first
+                    # position in shard order (JAX's psum)
+                    acc = part if acc is None else acc + part
+                if shards:
+                    records.append(Record(tuple(chunk_pos), tuple(shards), tuple(out_shp), chunk))
 
         if not self.keeptrials:
             avg = acc / self.numTrials
             if self._post_fn is not None:
-                avg = self._post_fn(avg)
+                with device_context(avg.device):
+                    avg = self._post_fn(avg)
             self.outputShape = tuple(avg.shape)
             self.dtype = np.dtype(str(avg.dtype).replace("torch.", ""))
             host_out = _allocate_host_output(self.outputShape, self.dtype, out)

@@ -20,7 +20,11 @@
 # GEMM form of the plus operator) is not ported. The cross-covariance
 # takes the FFT route on every device; the lag-batched GEMM form
 # (_ccov_lags_gemm) was shaped for the TPU's matrix unit and waits for a
-# measurement on the card.
+# measurement on the card. wilson_sf_sharded and granger_sharded split
+# Wilson's per-frequency work over the positions of a mesh axis and its
+# lag-domain FFTs over channel rows, swapping the two layouts by copies
+# between positions (the all-to-all that GSPMD inserts in the JAX
+# package).
 
 import numpy as np
 import torch
@@ -32,6 +36,7 @@ __all__ = ["spectral_dyadic_product", "normalize_csd", "normalize_ccov",
            "csd_sum_compensated",
            "gram_sum_twosum", "csd_lam_extents", "csd_reg_params", "apply_csd_reg",
            "psd_topup", "regularize_csd", "wilson_sf", "wilson_sf_twosided", "granger",
+           "wilson_sf_sharded", "granger_sharded",
            "wilson_sf_host",
            "regularize_csd_host", "granger_host"]
 
@@ -466,6 +471,158 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
     Hfunc = psi @ _inv_nan(psi0)[:, None]
     return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
             (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
+
+
+def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
+    """
+    :func:`wilson_sf` of one one-sided ``(F, N, N)`` CSD split over the
+    positions of a mesh axis (syncopy_tpu/ops/connectivity.py::
+    wilson_sf_sharded, for channel counts whose workspace exceeds one
+    device): the per-frequency inverse, Cholesky and matrix products run
+    on blocks of ``ceil(F / n)`` frequencies (the last ones shorter, as
+    GSPMD pads an uneven axis), the plus operator's FFTs along frequency
+    on blocks of channel rows; each step swaps the two layouts by copies
+    between positions. The setup (Hermitizing, scaling, the zero-lag
+    Cholesky start) and the final assembly run on the axis's first
+    position. The same iteration and exits as :func:`wilson_sf`, in the
+    CSD's own precision.
+
+    Parameters
+    ----------
+    CSD : (F, N, N) complex tensor or array
+    mesh : :class:`~syncopy_tpu_torch.parallel.mesh.Mesh`, default: the
+        active mesh (none raises ValueError)
+    axis_name : str, default: the mesh's first axis
+
+    Returns
+    -------
+    ``(Hfunc (F, N, N), Sigma (N, N), converged, err, n_iter)`` on the
+    axis's first position, as :func:`wilson_sf` returns them.
+    """
+    from ..parallel.mesh import active_mesh, axis_devices, check_mesh, device_context, split_along
+
+    if mesh is None:
+        mesh = active_mesh()
+        if mesh is None:
+            raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
+    if axis_name is None:
+        axis_name = mesh.axis_names[0]
+    devices = axis_devices(check_mesh(mesh), axis_name)
+    home = devices[0]
+    CSD = torch.as_tensor(CSD).to(home)
+    F, N = CSD.shape[0], CSD.shape[-1]
+    cdtype, rdtype = CSD.dtype, _real_dtype(CSD.dtype)
+    M = 2 * F - 2
+
+    with device_context(home):
+        CSD = (CSD + CSD.mH) / 2
+        scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean()
+        CSD = CSD / scale
+        diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (F,)
+        valid_bin = diag_power > 1e-9 * diag_power.amax()
+        gamma0 = CSD.sum(dim=0) + CSD[1 : F - 1].conj().sum(dim=0)
+        gamma0 = ((gamma0 + gamma0.mH) / 2).real
+        psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (N, N)
+
+    # the frequency layout: (F_p, N, N) blocks; the row layout: (F, R_q, N)
+    freq = [(c, v, d) for c, v, d in zip(split_along(CSD, devices), split_along(valid_bin, devices),
+                                         devices) if c.shape[0]]
+    f_sizes = [c.shape[0] for c, _, _ in freq]
+    f_bounds = np.concatenate([[0], np.cumsum(f_sizes)])
+    r_step = -(-N // len(devices))
+    rows = [(q * r_step, min((q + 1) * r_step, N), d) for q, d in enumerate(devices)
+            if q * r_step < N]
+    eyes, U, absCSD, psi = [], [], [], []
+    for c, _, d in freq:
+        with device_context(d):
+            eyes.append(torch.eye(N, dtype=cdtype, device=d))
+            U.append(_cholesky_nan(c))
+            absCSD.append(c.abs())
+            psi.append(psi0.to(d).expand(c.shape[0], -1, -1).clone())
+
+    inf = torch.full((), float("inf"), dtype=rdtype, device=home)
+    err, prev_err, best_err = inf, inf, inf
+    it = torch.zeros((), dtype=torch.int64, device=home)
+
+    def running(err, prev_err, best_err, it):
+        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
+        blown = (err > 100 * best_err) & (it > 5)
+        return (err >= rtol) & (it < nIter) & ~(plateau | blown)
+
+    while bool(running(err, prev_err, best_err, it)):
+        gI = []
+        for p, (_, _, d) in enumerate(freq):
+            with device_context(d):
+                g = _inv_nan(psi[p]) @ U[p]
+                gI.append(g @ g.mH + eyes[p])
+        # frequency -> row layout, the plus operator along frequency
+        gplus_r, g0_r = [], []
+        for r0, r1, d in rows:
+            with device_context(d):
+                block = torch.cat([b[:, r0:r1].to(d) for b in gI], dim=0)  # (F, R, N)
+                gp, g0 = _plus_operator_onesided(block[None], M)
+                gplus_r.append(gp[0])
+                g0_r.append(g0[0].to(home))
+        with device_context(home):
+            g0 = torch.cat(g0_r, dim=0)  # (N, N)
+            S = torch.triu(g0)
+            S = S - S.mH
+            psi0_new = psi0 @ (g0 + S)
+        # row -> frequency layout, the step and its error per block
+        psi_new, errs = [], []
+        for p, (c, v, d) in enumerate(freq):
+            with device_context(d):
+                f0, f1 = int(f_bounds[p]), int(f_bounds[p + 1])
+                gplus = torch.cat([b[f0:f1].to(d) for b in gplus_r], dim=1)  # (F_p, N, N)
+                pn = psi[p] @ (gplus + S.to(d))
+                rel = (c - pn @ pn.mH).abs() / absCSD[p]
+                psi_new.append(pn)
+                errs.append(torch.where(v[:, None, None], rel, 0.0).amax().to(home))
+        new_err = torch.stack(errs).amax()
+        psi, psi0 = psi_new, psi0_new
+        prev_err, err = err, new_err
+        best_err = torch.minimum(best_err, new_err)
+        it = it + 1
+
+    with device_context(home):
+        Sigma = (psi0 @ psi0.mT) * scale
+        inv0 = _inv_nan(psi0)
+        Hfunc = torch.cat([(b @ inv0.to(b.device)).to(home) for b in psi], dim=0)
+    return Hfunc, Sigma, err < rtol, err, it
+
+
+def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_max=1e4):
+    """
+    Granger-Geweke causality from one trial-averaged ``(F, N, N)`` CSD too
+    wide for one device (syncopy_tpu/ops/connectivity.py::
+    granger_sharded): :func:`regularize_csd` on the mesh axis's first
+    position, :func:`wilson_sf_sharded`, then :func:`granger`, in
+    complex128 (the port's Granger precision).
+
+    Returns ``(G (F, N, N) float64, info)``, `info` holding the frontend's
+    ``out.info`` diagnostics.
+    """
+    from ..parallel.mesh import active_mesh, axis_devices, check_mesh, device_context
+
+    if mesh is None:
+        mesh = active_mesh()
+        if mesh is None:
+            raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
+    home = axis_devices(check_mesh(mesh), axis_name or mesh.axis_names[0])[0]
+    with device_context(home):
+        CSD = torch.as_tensor(CSD).to(home, torch.complex128)
+        CSDreg, factor, ini_cn = regularize_csd(CSD, cond_max=cond_max, eps_max=1e-1)
+    H, Sigma, conv, err, _ = wilson_sf_sharded(CSDreg, mesh=mesh, axis_name=axis_name,
+                                               nIter=nIter, rtol=rtol)
+    with device_context(home):
+        G = granger(CSDreg, H, Sigma)
+    info = {
+        "converged": bool(conv),
+        "max rel. err": float(err),
+        "reg. factor": float(factor),
+        "initial cond. num": float(ini_cn),
+    }
+    return G, info
 
 
 def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):

@@ -13,8 +13,9 @@
 # csrc/sosfilt.cu) in place of the associative scan, in float64 always.
 # Not ported: the dense-GEMM FIR and Hilbert operators and their knob
 # (_prefer_filter_gemm, _fir_conv_matrix, _hilbert_matrix,
-# filter_gemm_fingerprint, SPY_TPU_FILTER_GEMM), MXU rewrites, and
-# apply_fir_time_sharded (multi-card sharding, ROADMAP Queue 1 item 17).
+# filter_gemm_fingerprint, SPY_TPU_FILTER_GEMM) and MXU rewrites.
+# apply_fir_time_sharded splits one recording's time axis over a mesh
+# axis, with the filter halo copied between neighbouring positions.
 
 import functools
 
@@ -36,6 +37,7 @@ __all__ = [
     "hilbert",
     "downsample",
     "resample_poly",
+    "apply_fir_time_sharded",
 ]
 
 
@@ -128,6 +130,50 @@ def apply_fir(data, fkernel):
     y = torch.fft.irfft(X * Kf[:, None], n=L, dim=1)
     start = (K - 1) // 2
     return y[:, start : start + T]
+
+
+def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
+    """
+    FIR filtering of one recording whose TIME axis is split over the
+    positions of `mesh` along `axis_name` (syncopy_tpu/ops/filtering.py::
+    apply_fir_time_sharded: the context-parallel analog for recordings too
+    long for one device): each position receives a filter halo of ``(K -
+    1) // 2`` samples from each neighbour (zeros at the recording's
+    edges), convolves its extended block with :func:`apply_fir` on its
+    own device and crops it; the full signal is never gathered.
+
+    Parameters
+    ----------
+    x : (nSamples, nChannels) array or tensor, nSamples divisible by the
+        axis size; each block must hold at least the halo
+    fkernel : odd-length 1d FIR kernel
+    mesh : :class:`~syncopy_tpu_torch.parallel.mesh.Mesh`
+
+    Returns
+    -------
+    y : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor`, float32
+        (nSamples / n, nChannels) blocks along dim 0, one per position
+    """
+    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, device_context,
+                                 halo_exchange, split_along)
+
+    K = len(fkernel)
+    if K % 2 == 0:
+        raise ValueError("apply_fir_time_sharded requires an odd-length kernel")
+    devices = axis_devices(check_mesh(mesh), axis_name)
+    T = x.shape[0]
+    if T % len(devices):
+        raise ValueError("nSamples must be divisible by the mesh axis size")
+    halo = (K - 1) // 2
+    if halo > T // len(devices):
+        raise ValueError(
+            "filter halo ({} samples) exceeds the local shard ({})".format(halo, T // len(devices)))
+    blocks = split_along(torch.as_tensor(x).to(torch.float32), devices)
+    out = []
+    for ext, d in zip(halo_exchange(blocks, halo, halo), devices):
+        with device_context(d):
+            out.append(apply_fir(ext[None], fkernel)[0, halo : halo + T // len(devices)])
+    return ShardedTensor(out, dim=0)
 
 
 # ------------------------------------------------------------------------ #

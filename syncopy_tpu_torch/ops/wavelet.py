@@ -19,9 +19,10 @@
 #
 # Not ported: the direct-GEMM banks and their *_gemm_consts hooks
 # (syncopy_tpu/ops/wavelet.py:318-454; the FFT bank moves less than the
-# GEMM computes on the H100), cwt_time_sharded (multi-card sharding,
-# ROADMAP Queue 1 item 17), _gemm_fingerprint (the JAX compile cache), and
-# the SPY_TPU_* knobs.
+# GEMM computes on the H100), _gemm_fingerprint (the JAX compile cache),
+# and the SPY_TPU_* knobs. cwt_time_sharded splits one recording's time
+# axis over a mesh axis, with the wavelet halo copied between
+# neighbouring positions.
 
 import functools
 import math
@@ -41,6 +42,7 @@ __all__ = [
     "MorletSL",
     "get_optimal_wavelet_scales",
     "cwt",
+    "cwt_time_sharded",
     "superlet",
     "superlet_weights",
     "WaveletAnalysis",
@@ -337,6 +339,51 @@ def cwt(data, wavelet, scales, dt, power_only=False):
                               device=data.device)
         out[..., torch.as_tensor(idx, device=data.device), :] = y  # (..., C, S, T)
     return out.movedim(-3, -1)
+
+
+def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
+    """
+    Continuous wavelet transform of one recording whose TIME axis is split
+    over the positions of `mesh` along `axis_name`
+    (syncopy_tpu/ops/wavelet.py::cwt_time_sharded, the context-parallel
+    analog for recordings whose FFT bank would not fit one device): each
+    position receives a halo of ``ceil(5 max(scales) / dt) + 1`` samples,
+    the wavelets' half support, from each neighbour (zeros at the
+    recording's edges), runs :func:`cwt` on its extended block and crops
+    it; its transform stays on its device. Equal to :func:`cwt` on the
+    whole recording up to FFT rounding.
+
+    Parameters
+    ----------
+    data : (nSamples, nChannels) array or tensor, nSamples divisible by
+        the axis size
+    wavelet, scales, dt : as in :func:`cwt`
+    mesh : :class:`~syncopy_tpu_torch.parallel.mesh.Mesh`
+
+    Returns
+    -------
+    spec : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor` of
+        (nScales, nSamples / n, nChannels) complex64 blocks along dim 1
+    """
+    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, device_context,
+                                 halo_exchange, split_along)
+
+    devices = axis_devices(check_mesh(mesh), axis_name)
+    T = data.shape[0]
+    if T % len(devices):
+        raise ValueError("nSamples must be divisible by the mesh axis size")
+    T_local = T // len(devices)
+    halo = int(np.ceil(5.0 * float(np.max(np.asarray(scales))) / dt)) + 1
+    if halo > T_local:
+        raise ValueError(
+            "wavelet halo ({} samples) exceeds the local shard ({}); use "
+            "fewer devices or smaller scales".format(halo, T_local))
+    blocks = split_along(torch.as_tensor(data).to(torch.float32), devices)
+    out = []
+    for ext, d in zip(halo_exchange(blocks, halo, halo), devices):
+        with device_context(d):
+            out.append(cwt(ext, wavelet, scales, dt)[:, halo : halo + T_local])
+    return ShardedTensor(out, dim=1)
 
 
 def superlet_weights(scales, order_max, order_min=1, adaptive=False):

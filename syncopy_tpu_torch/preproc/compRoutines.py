@@ -51,9 +51,12 @@ class _PreprocRoutine(ComputationalRoutine):
     Filtering/detrending routines report a per-trial ``has_nan`` flag
     through the engine's aux side-channel (reference compRoutines.py:256,
     718 collects the same metadata per worker); the frontend exposes it as
-    ``out.info['nan_trials']``."""
+    ``out.info['nan_trials']``. Channels are independent: a mesh's channel
+    axis splits them, and the flags of the channel pieces combine by
+    "any"."""
 
     aux_per_trial = frozenset({"has_nan"})
+    channel_split = "separable"
 
     def output_trial_shape(self, trial_shape):
         return tuple(trial_shape), _F32

@@ -5,8 +5,8 @@
 # Port of syncopy_tpu/preproc/preprocessing.py (parity target: reference
 # syncopy/preproc/preprocessing.py:45-411): the same validation, errors,
 # chain of steps, `nan_trials` and cfg. The routines run on the port's
-# device (set_device); `parallel` resolves through parallel/mesh.py (one
-# device).
+# device (set_device); `parallel` resolves through parallel/mesh.py and
+# shards every step's trials and channels over the mesh.
 
 import numpy as np
 
@@ -83,8 +83,10 @@ def preprocessing(
     keeptrials : bool
         If False, average the preprocessed trials.
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: every step shards
+        its trials over the mesh's trial axis and its channels over the
+        channel axis (the Butterworth kernel launches once per trial shard
+        and chunk).
 
     Returns
     -------
@@ -163,7 +165,8 @@ def preprocessing(
     # z-scoring pre-pass (reference preprocessing.py:227-235)
     if zscore:
         current = _run_chain_step(
-            Standardize(polyremoval=polyremoval), current, keeptrials, log_dict
+            Standardize(polyremoval=polyremoval), current, keeptrials, log_dict,
+            parallel=parallel,
         )
         polyremoval_filter = None
     else:
@@ -179,7 +182,7 @@ def preprocessing(
             samplerate=data.samplerate, filter_type=filter_type, freq=freq, order=order,
             direction=direction, polyremoval=polyremoval_filter,
         )
-        current = _run_chain_step(cr, current, keeptrials, log_dict)
+        current = _run_chain_step(cr, current, keeptrials, log_dict, parallel=parallel)
     elif filter_class == "firws":
         check_effective_parameters(
             SincFiltering, defaults, lcls, besides=["zscore", "rectify", "hilbert"]
@@ -190,16 +193,18 @@ def preprocessing(
             samplerate=data.samplerate, filter_type=filter_type, freq=freq, order=order,
             direction=direction, window=window, polyremoval=polyremoval_filter,
         )
-        current = _run_chain_step(cr, current, keeptrials, log_dict)
+        current = _run_chain_step(cr, current, keeptrials, log_dict, parallel=parallel)
     elif filter_class is None and polyremoval is not None and not zscore:
         current = _run_chain_step(
-            Detrending(polyremoval=polyremoval), current, keeptrials, log_dict
+            Detrending(polyremoval=polyremoval), current, keeptrials, log_dict,
+            parallel=parallel,
         )
 
     if rectify:
-        current = _run_chain_step(Rectify(), current, keeptrials, log_dict)
+        current = _run_chain_step(Rectify(), current, keeptrials, log_dict, parallel=parallel)
     elif hilbert:
-        current = _run_chain_step(Hilbert(output=hilbert), current, keeptrials, log_dict)
+        current = _run_chain_step(Hilbert(output=hilbert), current, keeptrials, log_dict,
+                                  parallel=parallel)
 
     if current is data:
         raise SPYError("No preprocessing step was performed")
@@ -209,10 +214,10 @@ def preprocessing(
     return current
 
 
-def _run_chain_step(cr, data, keeptrials, log_dict):
+def _run_chain_step(cr, data, keeptrials, log_dict, parallel=None):
     out = AnalogData(dimord=data.dimord)
     cr.initialize(data, out._stackingDim, keeptrials=keeptrials)
-    cr.compute(data, out, log_dict=log_dict)
+    cr.compute(data, out, log_dict=log_dict, parallel=parallel)
     # per-trial NaN flags from the aux side-channel -> trial indices
     # (reference res.info['nan_trials'], compRoutines.py:256)
     has_nan = cr.aux_info.get("has_nan")

@@ -4,7 +4,7 @@
 #
 # Port of syncopy_tpu/preproc/resampledata.py (parity target: reference
 # syncopy/preproc/resampledata.py:31-230). `parallel` resolves through
-# parallel/mesh.py (one device).
+# parallel/mesh.py and shards the trials and channels over the mesh.
 
 import fractions
 
@@ -60,8 +60,8 @@ def resampledata(
     keeptrials : bool
         If False, average the resampled trials.
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: the trials shard
+        over the mesh's trial axis, the channels over its channel axis.
 
     Returns
     -------
@@ -108,25 +108,25 @@ def resampledata(
                 samplerate=data.samplerate, filter_type="lp", freq=lpfreq,
                 order=order if order is not None else 1000, direction="twopass",
             )
-            current = _run(aa, current, keeptrials, log_dict)
+            current = _run(aa, current, keeptrials, log_dict, parallel=parallel)
         cr = Downsample(samplerate=data.samplerate, new_samplerate=resamplefs)
-        out = _run(cr, current, keeptrials, log_dict)
+        out = _run(cr, current, keeptrials, log_dict, parallel=parallel)
     else:
         check_effective_parameters(Resample, defaults, lcls)
         cr = Resample(
             samplerate=data.samplerate, new_samplerate=resamplefs, lpfreq=lpfreq, order=order
         )
-        out = _run(cr, current, keeptrials, log_dict)
+        out = _run(cr, current, keeptrials, log_dict, parallel=parallel)
 
     out.cfg.update(data.cfg)
     out.cfg.update({"resampledata": new_cfg})
     return out
 
 
-def _run(cr, data, keeptrials, log_dict):
+def _run(cr, data, keeptrials, log_dict, parallel=None):
     out = AnalogData(dimord=data.dimord)
     cr.initialize(data, out._stackingDim, keeptrials=keeptrials)
-    cr.compute(data, out, log_dict=log_dict)
+    cr.compute(data, out, log_dict=log_dict, parallel=parallel)
     return out
 
 

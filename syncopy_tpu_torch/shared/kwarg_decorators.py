@@ -167,28 +167,30 @@ def unwrap_select(func):
 
 def detect_parallel_client(func):
     """
-    Validate the ``parallel`` keyword at the frontend boundary and resolve
-    it with :func:`~syncopy_tpu_torch.parallel.mesh.resolve_parallel`:
-    ``None`` picks up the process-global active mesh (the analog of the
-    reference detecting a running Dask client), ``True`` builds a mesh over
-    all visible devices (warns and runs on one device when only one
-    exists), ``False`` forces one device. The port runs on one device, so
-    a mesh of one device computes what ``None`` does; a mesh over more
-    devices raises NotImplementedError where it is built.
+    Validate the ``parallel`` keyword at the frontend boundary; the
+    frontend passes it on to the engine, where
+    :func:`~syncopy_tpu_torch.parallel.mesh.resolve_parallel` maps it to a
+    mesh: ``None`` picks up the process-global active mesh (the analog of
+    the reference detecting a running Dask client), ``True`` builds a mesh
+    over all visible devices (warns and runs on one device when only one
+    exists), ``False`` forces one device. An active mesh that the call
+    would use is checked here already (:func:`~syncopy_tpu_torch.parallel.
+    mesh.check_mesh`), before any work.
 
     Reference kwarg_decorators.py:415-584.
     """
 
     @functools.wraps(func)
     def wrapper_parallel(*args, **kwargs):
-        from ..parallel.mesh import resolve_parallel
+        from ..parallel.mesh import active_mesh, check_mesh
 
         parallel = kwargs.get("parallel", None)
         if parallel not in (None, True, False):
             raise SPYValueError(
                 legal="`parallel` to be None, True or False", varname="parallel", actual=str(parallel)
             )
-        resolve_parallel(parallel)
+        if parallel is not False and active_mesh() is not None:
+            check_mesh(active_mesh())
         return func(*args, **kwargs)
 
     return wrapper_parallel

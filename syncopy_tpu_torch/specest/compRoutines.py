@@ -36,7 +36,10 @@ class MultiTaperFFT(ComputationalRoutine):
     Output per trial: ``(1, nTaper|1, nFreq, nChannel)``; tapers are
     averaged unless ``keeptapers=True``. With `exact_fft` the spectra take
     the float64 route of :func:`~syncopy_tpu_torch.ops.spectral.mtmfft_exact`.
+    Channels are independent: a mesh's channel axis splits them.
     """
+
+    channel_split = "separable"
 
     valid_kws = [
         "taper",
@@ -126,8 +129,11 @@ class _TimeFreqRoutine(ComputationalRoutine):
 
     `toi` semantics (reference freqanalysis.py:674-790): `'all'` centers a
     window on every sample, a float in [0, 1] sets the window overlap, an
-    array gives explicit window-center times in seconds.
+    array gives explicit window-center times in seconds. Channels are
+    independent: a mesh's channel axis splits them.
     """
+
+    channel_split = "separable"
 
     def per_trial_inputs(self, data, trial_positions):
         toi = self.cfg["toi"]

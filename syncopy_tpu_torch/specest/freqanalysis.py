@@ -6,7 +6,8 @@
 # syncopy/specest/freqanalysis.py:62-1064). Methods: mtmfft, mtmconvol,
 # wavelet, superlet, welch (+ FOOOF outputs). The routines run on the
 # port's device (set_device); `parallel` resolves through
-# parallel/mesh.py (one device), `chan_per_worker` is accepted and ignored.
+# parallel/mesh.py and shards the trials and channels over the mesh,
+# `chan_per_worker` is accepted and ignored.
 
 import numpy as np
 
@@ -141,8 +142,9 @@ def freqanalysis(
         mtmfft: detrend, taper and FFT in float64, rounded to complex64 at
         the end (spectra for Granger; no limit on the trial length).
     parallel, chan_per_worker
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: the trials shard
+        over the mesh's trial axis, the channels over its channel axis
+        (`chan_per_worker` is accepted and ignored).
 
     Returns
     -------
@@ -400,7 +402,7 @@ def freqanalysis(
         out = SpectralData(dimord=SpectralData._defaultDimord)
 
     specestMethod.initialize(data, out._stackingDim, keeptrials=keeptrials)
-    specestMethod.compute(data, out, log_dict=log_dict)
+    specestMethod.compute(data, out, log_dict=log_dict, parallel=parallel)
 
     if fooof_flavour is not None:
         from .fooof_route import run_fooof

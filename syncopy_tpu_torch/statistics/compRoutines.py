@@ -231,8 +231,11 @@ class Covariance(ComputationalRoutine):
     (reference statistics/compRoutines.py:139-233): the demeaned float32
     ``x.T @ x / (T - ddof)`` of each trial, batched (one matmul a chunk,
     TF32 off). Output per trial: ``(1, nChannel, nChannel)`` stacked along
-    the first axis.
+    the first axis. On a mesh's channel axis the demeaning
+    (:meth:`channel_stage`) runs on the channel positions.
     """
+
+    channel_split = "cross"
 
     valid_kws = ["ddof", "demean"]
 
@@ -246,12 +249,18 @@ class Covariance(ComputationalRoutine):
     def process_single_trial(self, trial, **cfg):
         return self.process_batch(trial[None], **cfg)[0]
 
-    def process_batch(self, batch, **cfg):
+    def channel_stage(self, batch, **cfg):
         x = batch.to(torch.float32)
         if cfg["demean"]:
             x = x - x.mean(dim=1, keepdim=True)
+        return x
+
+    def process_batch_staged(self, x, **cfg):
         n = x.shape[1] - cfg["ddof"]
         return (torch.matmul(x.transpose(1, 2), x) / n)[:, None]
+
+    def process_batch(self, batch, **cfg):
+        return self.process_batch_staged(self.channel_stage(batch, **cfg), **cfg)
 
     def process_metadata(self, data, out):
         pass  # the caller attaches the result as an extra dataset

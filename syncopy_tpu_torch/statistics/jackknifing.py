@@ -16,7 +16,7 @@ from ..shared.errors import SPYError, SPYValueError
 __all__ = ["trial_avg_replicates", "bias_var"]
 
 
-def trial_avg_replicates(trl_ensemble):
+def trial_avg_replicates(trl_ensemble, parallel=None):
     """
     An object whose k-th trial is the leave-one-out trial average without
     trial k (reference jackknifing.py:14-108): two engine passes, the
@@ -31,7 +31,7 @@ def trial_avg_replicates(trl_ensemble):
     if n_trials < 2:
         raise SPYValueError(legal="at least 2 trials", varname="trl_ensemble", actual=str(n_trials))
 
-    avg = _streamed_trial_mean(trl_ensemble)
+    avg = _streamed_trial_mean(trl_ensemble, parallel=parallel)
 
     replicates = trl_ensemble.__class__(dimord=trl_ensemble.dimord)
     cr = LOOAverage(n_trials=n_trials, avg=avg)
@@ -44,12 +44,13 @@ def trial_avg_replicates(trl_ensemble):
                 actual=str(exc),
             )
         raise
-    cr.compute(trl_ensemble, replicates, log_dict={"operation": "jackknife LOO replicates"})
+    cr.compute(trl_ensemble, replicates, log_dict={"operation": "jackknife LOO replicates"},
+               parallel=parallel)
     _propagate_cross_props(trl_ensemble, replicates)
     return replicates
 
 
-def bias_var(direct_estimate, replicates):
+def bias_var(direct_estimate, replicates, parallel=None):
     """
     Jackknife bias and variance from the direct estimate and the
     replicate ensemble (reference jackknifing.py:111-186):
@@ -77,7 +78,7 @@ def bias_var(direct_estimate, replicates):
 
     # two streamed passes: the replicate mean, then the centred second
     # moment
-    jack_avg = _streamed_trial_mean(replicates, double=True)
+    jack_avg = _streamed_trial_mean(replicates, double=True, parallel=parallel)
     direct_host = np.asarray(direct_estimate.trials[0])
     if tuple(jack_avg.shape) != direct_host.shape:
         raise SPYError(
@@ -87,6 +88,7 @@ def bias_var(direct_estimate, replicates):
     _, m2_out = _run_trial_reduce(
         replicates, "centered_sq", center=jack_avg,
         log_dict={"operation": "jackknife variance", "dim": "trials"}, double=True,
+        parallel=parallel,
     )
     bias_dtype = np.result_type(direct_host.dtype, replicates.data.dtype)
     bias_host = ((n_trials - 1) * (jack_avg - direct_host)).astype(bias_dtype)

@@ -6,7 +6,8 @@
 # (parity target: reference syncopy/statistics/spike_psth.py:37-248); host
 # numpy on the port's SpikeData. Like every entry point of the port it
 # checks the device setting first (no card and no set_device("cpu")
-# raises). `parallel` resolves through parallel/mesh.py.
+# raises). `parallel` resolves through parallel/mesh.py; the histogram
+# is host numpy and uses no mesh, as in the JAX package.
 
 import numpy as np
 
@@ -61,8 +62,8 @@ def spike_psth(
         Keep per-trial histograms (the trial average/variance land in the
         ``avg``/``var`` datasets either way).
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel and validated; the
+        histogram is host numpy and uses no mesh, as in the JAX package.
 
     Returns
     -------

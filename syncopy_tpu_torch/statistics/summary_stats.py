@@ -36,8 +36,9 @@ def mean(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
         For dimension statistics: keep per-trial results (ignored for
         dim="trials").
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: the engine passes
+        shard the trials over the mesh, the trial sums combine on its first
+        position.
 
     Returns
     -------
@@ -45,7 +46,7 @@ def mean(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
 
     Reference: summary_stats.py:24.
     """
-    return _statistics(spy_data, "mean", dim, keeptrials, **kwargs)
+    return _statistics(spy_data, "mean", dim, keeptrials, parallel=parallel, **kwargs)
 
 
 @unwrap_cfg
@@ -58,7 +59,7 @@ def std(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
     streams a centred-moment reduction on the device. Reference:
     summary_stats.py:58.
     """
-    return _statistics(spy_data, "std", dim, keeptrials, **kwargs)
+    return _statistics(spy_data, "std", dim, keeptrials, parallel=parallel, **kwargs)
 
 
 @unwrap_cfg
@@ -71,7 +72,7 @@ def var(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
     streams a centred-moment reduction on the device. Reference:
     summary_stats.py:91.
     """
-    return _statistics(spy_data, "var", dim, keeptrials, **kwargs)
+    return _statistics(spy_data, "var", dim, keeptrials, parallel=parallel, **kwargs)
 
 
 @unwrap_cfg
@@ -84,7 +85,7 @@ def median(spy_data, dim, keeptrials=True, parallel=None, **kwargs):
     not supported (an order statistic over the trial stack); dimension
     medians run per trial. Reference: summary_stats.py:124.
     """
-    return _statistics(spy_data, "median", dim, keeptrials, **kwargs)
+    return _statistics(spy_data, "median", dim, keeptrials, parallel=parallel, **kwargs)
 
 
 @unwrap_cfg
@@ -98,8 +99,9 @@ def itc(spec_data, parallel=None, **kwargs):
     spec_data : :class:`~syncopy_tpu_torch.SpectralData`
         Complex spectra (``output="fourier"``, trials kept).
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: the engine passes
+        shard the trials over the mesh, the trial sums combine on its first
+        position.
 
     Returns
     -------
@@ -116,12 +118,12 @@ def itc(spec_data, parallel=None, **kwargs):
             "syncopy_tpu_torch.freqanalysis!",
             varname="spec_data", actual="real valued spectral data",
         )
-    res = _trial_statistics(spec_data, operation="itc")
+    res = _trial_statistics(spec_data, operation="itc", parallel=parallel)
     res.cfg.update(spec_data.cfg)
     return res
 
 
-def _statistics(spy_data, operation, dim, keeptrials=True, **kwargs):
+def _statistics(spy_data, operation, dim, keeptrials=True, parallel=None, **kwargs):
     """Dimension statistics (NumpyStatDim) or trial statistics (streamed
     TrialReduce); reference summary_stats.py:207-319."""
     data_parser(spy_data, varname="spy_data", empty=False)
@@ -135,7 +137,7 @@ def _statistics(spy_data, operation, dim, keeptrials=True, **kwargs):
     if dim == "trials":
         if operation == "median":
             raise SPYError("Trial median not supported at the moment")
-        out = _trial_statistics(spy_data, operation)
+        out = _trial_statistics(spy_data, operation, parallel=parallel)
         out.log = "computed trial statistics {}".format(log_dict)
         out.cfg.update(spy_data.cfg)
         return out
@@ -143,7 +145,7 @@ def _statistics(spy_data, operation, dim, keeptrials=True, **kwargs):
     avCR = NumpyStatDim(operation=operation, axis=spy_data.dimord.index(dim))
     out = spy_data.__class__(dimord=spy_data.dimord)
     avCR.initialize(spy_data, spy_data._stackingDim, keeptrials=keeptrials)
-    avCR.compute(spy_data, out, log_dict=log_dict)
+    avCR.compute(spy_data, out, log_dict=log_dict, parallel=parallel)
     out.cfg.update(spy_data.cfg)
     return out
 
@@ -160,7 +162,7 @@ def _check_equal_trials(in_data):
 
 
 def _run_trial_reduce(in_data, mode, center=None, post_device_fn=None, log_dict=None,
-                      double=False):
+                      double=False, parallel=None):
     """One streamed engine pass of :class:`TrialReduce` over `in_data`:
     chunked accumulation on the device (in float64 with `double`), host
     memory bounded by one chunk. Returns ``(routine, output object)``."""
@@ -176,18 +178,19 @@ def _run_trial_reduce(in_data, mode, center=None, post_device_fn=None, log_dict=
                 actual="found trials of different shape",
             )
         raise
-    cr.compute(in_data, out, log_dict=log_dict, post_device_fn=post_device_fn)
+    cr.compute(in_data, out, log_dict=log_dict, post_device_fn=post_device_fn,
+               parallel=parallel)
     return cr, out
 
 
-def _streamed_trial_mean(in_data, double=False):
+def _streamed_trial_mean(in_data, double=False, parallel=None):
     """The trial average as a host array (pass 1 of two-pass statistics)."""
     _, out = _run_trial_reduce(in_data, "sum", log_dict={"operation": "mean", "dim": "trials"},
-                               double=double)
+                               double=double, parallel=parallel)
     return np.asarray(out.data)
 
 
-def _trial_statistics(in_data, operation="mean"):
+def _trial_statistics(in_data, operation="mean", parallel=None):
     """A statistic over the trial axis, streamed through the engine
     (reference summary_stats.py:321-405); var and std are exact two-pass
     (the mean, then the centred second moment)."""
@@ -195,12 +198,13 @@ def _trial_statistics(in_data, operation="mean"):
     log_dict = {"operation": operation, "dim": "trials"}
 
     if operation == "mean":
-        _, out_data = _run_trial_reduce(in_data, "sum", log_dict=log_dict)
+        _, out_data = _run_trial_reduce(in_data, "sum", log_dict=log_dict, parallel=parallel)
     elif operation in ("var", "std"):
-        center = _streamed_trial_mean(in_data)
+        center = _streamed_trial_mean(in_data, parallel=parallel)
         _, out_data = _run_trial_reduce(
             in_data, "centered_sq", center=center,
             post_device_fn=torch.sqrt if operation == "std" else None, log_dict=log_dict,
+            parallel=parallel,
         )
     elif operation == "itc":
         taper_ax = in_data.dimord.index("taper")
@@ -209,7 +213,7 @@ def _trial_statistics(in_data, operation="mean"):
             return resultant.mean(dim=taper_ax, keepdim=True).abs()
 
         _, out_data = _run_trial_reduce(in_data, "unit_sum", post_device_fn=post,
-                                        log_dict=log_dict)
+                                        log_dict=log_dict, parallel=parallel)
     else:
         raise SPYValueError(legal="mean/var/std/itc", varname="operation", actual=operation)
 

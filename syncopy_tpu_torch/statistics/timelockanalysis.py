@@ -7,7 +7,8 @@
 # reference syncopy/statistics/timelockanalysis.py:37-264): streamed
 # engine passes for the trial mean, the exact two-pass variance, the
 # batched covariance and, for keeptrials, a chunked identity copy.
-# `parallel` resolves through parallel/mesh.py (one device).
+# `parallel` resolves through parallel/mesh.py and shards every engine
+# pass over the mesh.
 
 import numpy as np
 
@@ -77,8 +78,9 @@ def timelockanalysis(
         Keep the time-locked single trials in the primary dataset
         (``avg``/``var`` are computed either way).
     parallel : bool or None
-        Resolved by parallel/mesh.py::resolve_parallel: the port runs on one
-        device, a mesh over more raises NotImplementedError.
+        Resolved by parallel/mesh.py::resolve_parallel: the engine passes
+        (mean, variance, covariance, the copy) shard the trials over the
+        mesh; the covariance splits its demeaning over the channel axis.
 
     Returns
     -------
@@ -134,7 +136,7 @@ def timelockanalysis(
 
         n_trials = len(sel.trial_ids)
         try:
-            avg = _streamed_trial_mean(data)
+            avg = _streamed_trial_mean(data, parallel=parallel)
         except SPYValueError as exc:
             if "same shape" in str(exc) or "identical trial shapes" in str(exc):
                 raise SPYValueError(
@@ -144,7 +146,7 @@ def timelockanalysis(
             raise
         _, m2_out = _run_trial_reduce(
             data, "centered_sq", center=avg,
-            log_dict={"operation": "timelock var"},
+            log_dict={"operation": "timelock var"}, parallel=parallel,
         )
         var = np.asarray(m2_out.data)
         if n_trials > 1:
@@ -159,7 +161,7 @@ def timelockanalysis(
             cov_scratch = EngineScratch()
             cov_cr.initialize(data, 0, keeptrials=keeptrials)
             cov_cr.compute(data, cov_scratch, log_dict={"operation": "timelock covariance"},
-                           device_resident=False)
+                           device_resident=False, parallel=parallel)
             cov_arr = np.asarray(cov_scratch.data)
             cov = cov_arr if keeptrials else cov_arr[0]
 
@@ -171,7 +173,8 @@ def timelockanalysis(
             # into the output without a whole-ensemble host stack
             _copy_cr = _TimeLockCopy()
             _copy_cr.initialize(data, 0, keeptrials=True)
-            _copy_cr.compute(data, out, log_dict={"operation": "timelock copy"})
+            _copy_cr.compute(data, out, log_dict={"operation": "timelock copy"},
+                             parallel=parallel)
             trl = np.zeros((n_trials, 3))
             trl[:, 0] = np.arange(n_trials) * n_time
             trl[:, 1] = trl[:, 0] + n_time

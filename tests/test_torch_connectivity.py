@@ -250,8 +250,9 @@ def test_coherence_rejects_keeptrials_and_single_trial():
 def test_data_methods_outside_the_slice_not_ported_yet(tmp_path):
     """The data methods that once raised here are ported (arithmetic,
     save, plotting, NWB export; tests/test_torch_io.py and its siblings
-    hold them to the JAX package); what is still not ported, a mesh over
-    more than one device, raises naming its ROADMAP item."""
+    hold them to the JAX package), and so is the mesh over several
+    positions (tests/test_torch_mesh_invariance.py); what is still not
+    ported, a multi-host runtime, raises naming its ROADMAP item."""
     import matplotlib.pyplot as plt
 
     pdata, jdata = _both([100, 150], 3)
@@ -263,8 +264,10 @@ def test_data_methods_outside_the_slice_not_ported_yet(tmp_path):
     pdata.save_nwb(str(tmp_path / "x.nwb"))
     assert os.path.isfile(str(tmp_path / "x.nwb"))
     pdata._close_hdf()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        spt.make_mesh(devices=["cpu", "cpu"])
+    assert spt.make_mesh(devices=["cpu", "cpu"]).shape == {"trial": 2, "channel": 1}
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
+        spt.init_distributed(coordinator_address="localhost:1234", num_processes=2,
+                             process_id=0)
 
 
 def test_from_arrays_builds_the_same_object():

@@ -6,7 +6,8 @@
 # the card against the same paths on the CPU; the device AR(2) generator
 # against float64, a .spy round trip of a coherence computed through
 # the kernel (where h5py is installed), the resident band-pass, resample
-# and coherence chain, and the trial store's cached timelock upload. They skip where no CUDA
+# and coherence chain, the trial store's cached timelock upload, and each
+# kernel launched on a second card (two cards needed). They skip where no CUDA
 # device is present (the kernels have no CPU mode). This file imports no jax, so on a
 # machine without it run: python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -858,3 +859,54 @@ def test_cached_timelock_uploads_nothing(cuda_device):
         spt.set_device(previous)
     for name in ("avg", "var", "cov"):
         assert np.array_equal(np.asarray(getattr(first, name)), np.asarray(getattr(second, name)))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_second_card():
+    """Each hand-written kernel launches on cuda:1 (its library loaded once
+    per process, its launch on that device's current stream) and agrees
+    with its plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from syncopy_tpu_torch.ops import filtering as pfilt
+
+    dev = torch.device("cuda", 1)
+    g = torch.Generator().manual_seed(0)
+    spec = torch.randn(40, 33, 8, dtype=torch.complex64, generator=g)
+    spec4 = torch.randn(20, 3, 33, 8, dtype=torch.complex64, generator=g)
+    x = torch.randn(6, 300, 5, generator=g)
+    sos = pfilt.butter_sos(4, [10, 80], "bp", 1000.0)
+    with torch.cuda.device(0):  # the launches follow their tensors' device
+        got = ck.csd_accumulate_tiled(spec.to(dev), 37)
+        ppc = pk.ppc_accumulate_tiled(spec4.to(dev), 17)
+        y = ik.sosfilt_batch(x.to(dev), sos)
+    assert got.device == dev and ppc.device == dev and y.device == dev
+    want = ck.csd_accumulate_tiled_plain(spec.to(dev), 37)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    pwant = pk.ppc_accumulate_tiled_plain(spec4.to(dev), 17)
+    assert (ppc - pwant).abs().max() <= 1e-4 * pwant.abs().max()
+    ywant = ik.sosfilt_batch_plain(x.to(dev), sos, True)
+    assert (y - ywant).abs().max() <= 1e-6 * ywant.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_coherence_on_a_mesh_of_four_positions_on_the_card(cuda_device, shape):
+    """Four mesh positions on one card: one CSD kernel launch per trial
+    shard, within 1e-6 of the unsharded coherence."""
+    rng = np.random.default_rng(5)
+    data = rng.normal(size=(22 * 300, 8)).astype("f4")
+    trl = np.column_stack([np.arange(22) * 300, np.arange(1, 23) * 300, np.zeros(22)])
+    previous = spt.set_device(cuda_device)
+    try:
+        adata = spt.from_arrays(data, trl, 1000.0)
+        want = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
+        mesh = spt.make_mesh(n_trial=shape[0], n_channel=shape[1], devices=[cuda_device] * 4)
+        ck.csd_accumulate_tiled.launches = 0
+        with spt.use_mesh(mesh):
+            got = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=4).data)
+        assert ck.csd_accumulate_tiled.launches == shape[0]  # one 32-trial chunk
+    finally:
+        routine.clear_device_cache()
+        spt.set_device(previous)
+    assert np.abs(got - want).max() <= 1e-6

@@ -2,8 +2,7 @@
 # The port's top-level namespace, its one-card mesh and its profiler, on
 # the CPU: every name of syncopy_tpu.__all__ resolves in syncopy_tpu_torch
 # (the twin of tests/test_packagesetup.py::TestNamespace); a mesh of one
-# device computes exactly what parallel=None does, and a mesh over more
-# devices raises NotImplementedError naming its ROADMAP item;
+# device, and one of two positions, computes what parallel=None does;
 # profile() writes a trace file.
 
 import json
@@ -94,11 +93,17 @@ def test_one_device_mesh_computes_what_parallel_none_does():
     spt.init_distributed()
 
 
-def test_mesh_over_two_devices_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        spt.make_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-card sharding"):
-        spt.make_mesh(n_trial=1, n_channel=2, devices=["cpu", "cpu"])
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_two_position_mesh_computes_what_parallel_none_does(shape):
+    want = _coh()
+    mesh = spt.make_mesh(n_trial=shape[0], n_channel=shape[1], devices=["cpu", "cpu"])
+    assert mesh.shape == {"trial": shape[0], "channel": shape[1]}
+    with spt.use_mesh(mesh):
+        got = _coh()
+        np.testing.assert_allclose(_coh(parallel=True), got, rtol=0, atol=0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(_coh(parallel=False), want)
+    # the visible devices are one CPU: no mesh of two without `devices`
     with pytest.raises(SPYParallelError):
         spt.make_mesh(n_trial=2)
     with pytest.raises(SPYParallelError):
