@@ -157,6 +157,22 @@ Phases, each of which raises on failure (non-zero exit):
    card is visible, each kernel launched on every card against its plain
    version, and coh, ppc and the band-pass on a trial mesh over the cards
    against the unsharded calls with both walls; else "not run: one card".
+19. multi-host (parallel/mesh.py::init_distributed,
+   parallel/multihost_worker.py): two processes of the worker, started
+   once the kernels are built, join a torch.distributed cluster over gloo,
+   both on cuda:0 (NCCL refuses two ranks on one card), and each makes
+   phase 6's data itself. coh, ppc and phase 15b's band-pass
+   (keeptrials) on a 2 x 1 mesh over the two ranks: each rank uploads and
+   launches only its own trial shard (exactly one CSD, one PPC and one
+   Butterworth launch per rank), receives the other's partial or rows by
+   broadcast and holds the whole result, bitwise equal to rank 0's and to
+   a one-process 2 x 1 mesh's, within 1e-6 of its own parallel=False call
+   (the band-pass bitwise) and within 1e-5 of float64; each rank prints
+   the bytes it sent and received through the collectives, and the mesh
+   wall beside rank 0's parallel=False and one-process mesh walls (3 calls
+   each, in turns). A rank that fails or outlives its timeout fails the
+   phase. 19e: where more than one card is visible, one rank per card over
+   NCCL; else "not run: one card".
 Phases 9 to 16 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
 these paths run no CUDA kernel of the port. Phases 12 to 15 also print
@@ -178,7 +194,8 @@ package calls it only from its Pallas probe), error, times and bound (the
 least time the card could take: operations over the FP32 peak, FP64 for
 the Butterworth cascade, against bytes over the HBM rate, from this run's
 shapes); the Granger path launches none of them. The launches count
-phase 6's, 7's, 15's, 16's, 17a's and 18's main paths. The last line is
+phase 6's, 7's, 15's, 16's, 17a's, 18's and 19's main paths (phase 19's
+in its ranks' processes). The last line is
 ``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
 
     python3 chip_smoke.py --save-csd DIR
@@ -186,7 +203,7 @@ phase 6's, 7's, 15's, 16's, 17a's and 18's main paths. The last line is
 also writes the 64-channel Granger CSD and the port's result there
 (``granger_csd64.npz``), for scripts/granger_compare_jax.py;
 ``--jackknife-trials N`` sets phase 9's trial count; ``--cards-only`` runs
-phases 1, 2 and 18e only (on a host with several cards).
+phases 1, 2, 18e and 19e only (on a host with several cards).
 """
 
 import argparse
@@ -2851,6 +2868,90 @@ def cards_phase(spt, adata, coh_ref):
     return launches
 
 
+#: phase 19: seconds a rank waits for its peers, and that the whole run
+#: of the ranks may take
+MULTIHOST_RANK_TIMEOUT, MULTIHOST_RUN_TIMEOUT = 300, 600
+#: phase 19's frontends and the kernel each launches, once per rank
+MULTIHOST_KERNELS = {"coh": "csd_accumulate_tiled", "ppc": "ppc_accumulate_tiled",
+                     "bandpass": "sosfiltfilt"}
+
+
+def multihost_phase(label, n_ranks, backend):
+    """Phase 19 (19e): `n_ranks` processes of the port's multihost worker
+    at full size, rank r on cuda:(r % cards), joined over `backend`; each
+    rank runs coh, ppc and the band-pass on a mesh over the ranks and
+    checks itself (see the worker). Here: every rank exited 0 within the
+    run's timeout, launched its frontend's kernel exactly once and no
+    other, is within 1e-6 of its own unsharded call (the band-pass
+    bitwise); prints each rank's lines and a summary. Returns the launches
+    summed over the ranks, by kernel."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "syncopy_tpu_torch.parallel.multihost_worker", str(r),
+         str(n_ranks), str(port), "--device", "cuda", "--backend", backend, "--size", "full",
+         "--reps", "3", "--timeout", str(MULTIHOST_RANK_TIMEOUT)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=root)
+        for r in range(n_ranks)]
+    outs = []
+    try:
+        for p in procs:
+            left = t0 + MULTIHOST_RUN_TIMEOUT - time.perf_counter()
+            out, _ = p.communicate(timeout=max(1.0, left))
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    records = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("rank ") or line.startswith("MULTIHOST OK"):
+                print("{} {}".format(label, line))
+        if p.returncode != 0 or "MULTIHOST OK rank {}/{}".format(r, n_ranks) not in out:
+            raise AssertionError("{}: rank {} exited {}:\n{}".format(
+                label, r, p.returncode, out[-4000:]))
+        records += [json.loads(line[len("MULTIHOST "):]) for line in out.splitlines()
+                    if line.startswith("MULTIHOST {")]
+    launches = dict.fromkeys(MULTIHOST_KERNELS.values(), 0)
+    for name, kernel in MULTIHOST_KERNELS.items():
+        recs = sorted((rec for rec in records if rec["frontend"] == name),
+                      key=lambda rec: rec["rank"])
+        if len(recs) != n_ranks:
+            raise AssertionError("{} {}: {} ranks reported".format(label, name, len(recs)))
+        for rec in recs:
+            want = dict.fromkeys(rec["launches"], 0)
+            want[kernel] = 1
+            exact = name == "bandpass"
+            if rec["launches"] != want or not (
+                    rec["max_diff"] == 0 if exact else rec["max_diff"] <= MESH_ABS_TOL):
+                raise AssertionError("{} {} rank {}: launches {}, diff {}".format(
+                    label, name, rec["rank"], rec["launches"], rec["max_diff"]))
+            launches[kernel] += rec["launches"][kernel]
+        solo, twin = (statistics.median(recs[0]["walls_s"][k])
+                      for k in ("parallel=False", "one-process mesh"))
+        print("{} {} over {} ranks ({}): launches per rank {}; max diff to the unsharded call "
+              "{}; to float64 {}; bytes sent / received per rank {}; wall median over {} "
+              "ranks {} s against rank 0 alone unsharded {:.4f} s and on a one-process mesh "
+              "{:.4f} s".format(
+                  label, name, n_ranks, backend, [rec["launches"][kernel] for rec in recs],
+                  ", ".join("{:.3e}".format(rec["max_diff"]) for rec in recs),
+                  ", ".join("{:.3e}".format(rec["err_f64"]) for rec in recs),
+                  ", ".join("{} / {}".format(rec["sent"], rec["received"]) for rec in recs),
+                  n_ranks, ", ".join("{:.4f}".format(statistics.median(rec["walls_s"]["mesh"]))
+                                     for rec in recs), solo, twin))
+    print("{}: {} ranks over {}, {:.1f} s with their start".format(label, n_ranks, backend, wall))
+    return launches
+
+
 def chunk_trials_for_bp():
     """Trials per chunk of the band-pass routine at the north-star shape."""
     from syncopy_tpu_torch.engine.routine import chunk_trials
@@ -2872,7 +2973,8 @@ def main():
                         help="trials of the coherence jackknife (phase 9), at most {}".format(
                             N_TRIALS))
     parser.add_argument("--cards-only", action="store_true",
-                        help="run phases 1, 2 and 18e (the mesh over the real cards) only")
+                        help="run phases 1, 2, 18e and 19e (the mesh and one rank per "
+                        "card over the real cards) only")
     args = parser.parse_args()
 
     # -- 1. device ------------------------------------------------------- #
@@ -2927,6 +3029,9 @@ def main():
         adata = spt.from_arrays(data, trl, FS)
         coh_ref = np.asarray(spt.connectivityanalysis(adata, method="coh", tapsmofrq=2).data)[0]
         cards_phase(spt, adata, coh_ref)
+        del data, adata
+        clear_store()
+        multihost_phase("19e", torch.cuda.device_count(), "nccl")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
         return 0
@@ -3182,13 +3287,24 @@ def main():
                       preproc["chain"]["coh64"], extras["coh"], granger[N_CHANNELS]["csd"])
     print("phase 18: {:.1f} s".format(time.perf_counter() - t0))
 
+    # -- 19. multi-host: two ranks on the card, and one rank per card ------ #
+    t0 = time.perf_counter()
+    clear_store()
+    multihost = multihost_phase("19", 2, "gloo")
+    if torch.cuda.device_count() > 1:
+        for kernel, count in multihost_phase("19e", torch.cuda.device_count(), "nccl").items():
+            multihost[kernel] += count
+    else:
+        print("19e one rank per card over nccl: not run: one card")
+    print("phase 19: {:.1f} s".format(time.perf_counter() - t0))
+
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/csd_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:140",
         "launches": launches + synth["launches"] + extras["csd_launches"]
-        + mesh["csd_accumulate_tiled"],
+        + mesh["csd_accumulate_tiled"] + multihost["csd_accumulate_tiled"],
         "max_abs_err": bench_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3212,7 +3328,8 @@ def main():
         "route": "cuda",
         "source": "syncopy_tpu_torch/csrc/ppc_accumulate.cu",
         "replaces": "syncopy_tpu/ops/pallas_kernels.py:249",
-        "launches": ppc_launches + mesh["ppc_accumulate_tiled"],
+        "launches": ppc_launches + mesh["ppc_accumulate_tiled"]
+        + multihost["ppc_accumulate_tiled"],
         "max_abs_err": ppc_err,
         "ms": ppc_ms,
         "plain_ms": ppc_plain_ms,
@@ -3225,7 +3342,8 @@ def main():
         "source": "syncopy_tpu_torch/csrc/sosfilt.cu",
         "replaces": "syncopy_tpu/ops/filtering.py:181 (_biquad, lax.associative_scan; no "
                     "pallas_call)",
-        "launches": preproc["launches"] + extras["iir_launches"] + mesh["sosfiltfilt"],
+        "launches": preproc["launches"] + extras["iir_launches"] + mesh["sosfiltfilt"]
+        + multihost["sosfiltfilt"],
         "max_abs_err": iir["max_abs_err"],
         "ms": iir["ms"],
         "plain_ms": iir["plain_ms"],

@@ -30,7 +30,13 @@
 #     into one contiguous block per trial shard, each with its own
 #     `n_valid`, computed on its position's device; trial sums combined on
 #     the mesh's first position in shard order (JAX's psum); a routine that
-#     declares `channel_split` splits its channels over the channel axis.
+#     declares `channel_split` splits its channels over the channel axis;
+#   - a mesh that spans processes (parallel/mesh.py::init_distributed):
+#     each rank gathers, uploads and computes only the trial shards it
+#     owns, and each shard's partial or rows reach every rank by a
+#     broadcast from its owner (mesh.share_from), in the plan's order on
+#     every rank; the partials are summed in shard order as in one
+#     process, so every rank holds the same bits.
 # Left out, as workarounds for the TPU runtime: the (re, im) complex
 # encoding, the readback relayout, the transient-error retries and the
 # compile back-off, f16 transfer/readback and the device constant cache
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import (Mesh, device_context, gather_shards, pad_to_multiple,
-                             resolve_parallel, shard_batch)
+                             process_rank, resolve_parallel, share_from)
 from ..shared.errors import SPYError, SPYValueError
 from ..shared.log import get_logger
 from . import resident as _resident
@@ -192,6 +198,11 @@ def _allocate_host_output(shape, dtype, owner):
     return dset
 
 
+def _nbytes(tensor):
+    """Bytes of a tensor; 0 for None (another process's shard)."""
+    return 0 if tensor is None else tensor.numel() * tensor.element_size()
+
+
 def _torch_dtype(dtype):
     """The torch dtype of a numpy dtype."""
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
@@ -270,7 +281,9 @@ def chunk_trials(per_trial_bytes, n_trials, budget=None):
     """Trials per chunk: the byte budget over the per-trial bytes, capped
     at MAX_CHUNK_TRIALS, rounded down to a power of two and no larger than
     the next power of two above `n_trials`. The size is fixed for a whole
-    bucket; the last chunk is zero-padded and masked by n_valid."""
+    bucket; the last chunk is zero-padded and masked by n_valid. It
+    depends on nothing else (no free-memory reading), so every rank of a
+    cluster plans the same chunks and issues the same collectives."""
     budget = DEFAULT_CHUNK_BUDGET if budget is None else budget
     chunk = max(1, int(budget // max(per_trial_bytes, 1)))
     chunk = min(chunk, MAX_CHUNK_TRIALS)
@@ -593,17 +606,33 @@ class ComputationalRoutine:
         With `device_resident` (the default) a ``keeptrials=True`` result
         that fits ``resident.RESIDENT_BUDGET`` stays on the device(s) with
         a deferred readback (engine/resident.py); False reads it back.
+
+        On a mesh that spans processes (:func:`~syncopy_tpu_torch.parallel.
+        mesh.init_distributed`) every rank must make the same call on the
+        same data: each computes the trial shards it owns and receives the
+        others' results, and ends holding the whole result, equal on every
+        rank. Such a run reads its result back within the call
+        (`device_resident` does not apply): a deferred readback that one
+        rank triggered alone would wait for the other ranks' rows forever.
+        A routine with ``trial_split = False`` runs on the rank that owns
+        the mesh's first position.
         """
         if self.buckets is None:
             raise SPYError("call initialize() before compute()")
         self.mesh = resolve_parallel(parallel)
         if self.mesh is not None and self.trial_split:
-            grid = self.mesh.devices
+            grid, ranks = self.mesh.devices, self.mesh.ranks
         else:
             grid = np.empty((1, 1), dtype=object)
             grid[0, 0] = self.device if self.mesh is None else self.mesh.device
-        #: the (trial shard, channel position) grid of devices of this run
-        self._grid = grid
+            ranks = np.full((1, 1), process_rank() if self.mesh is None else self.mesh.ranks[0, 0])
+        #: the (trial shard, channel position) grid of devices of this run,
+        #: and each position's owner rank
+        self._grid, self._grid_ranks = grid, ranks
+        #: shard results travel between processes (share_from); where this
+        #: process adds the trial partials and receives the others' rows
+        self._shared = self.mesh is not None and self.mesh.crosses_processes
+        self._home = self.mesh.home_device() if self._shared else grid[0, 0]
         self._post_fn = post_device_fn
         self.aux_info = {}
         self._aux_per_trial = {}
@@ -622,7 +651,7 @@ class ComputationalRoutine:
         """Should this run keep its per-trial results on the device? Only a
         kept result within the resident budget, once older residents have
         made room."""
-        if not (device_resident and self.keeptrials):
+        if not (device_resident and self.keeptrials) or self._shared:
             return False
         est = int(np.prod(self.outputShape)) * np.dtype(self.dtype).itemsize
         return est <= _resident.RESIDENT_BUDGET and _admit(est)
@@ -720,9 +749,11 @@ class ComputationalRoutine:
         selection is active and the records cover every bucket in order;
         None otherwise (the host path). A producer chunk that is not a
         multiple of this run's trial shards also takes the host path (the
-        JAX engine's rule, reference :887)."""
+        JAX engine's rule, reference :887), and so does a run whose mesh
+        spans processes."""
         res = getattr(data, "_device_resident", None)
-        if res is None or not res.consumable_by(data) or data.selection is not None:
+        if (res is None or not res.consumable_by(data) or data.selection is not None
+                or self._shared):
             return None
         n_shard = self._grid.shape[0]
         by_shape = {}
@@ -765,21 +796,43 @@ class ComputationalRoutine:
                     blocks.append(block)
                 yield blocks, list(rec.positions[s0 : s0 + n])
 
+    def _upload_block(self, data, block_pos, rows, shp, in_dtype, device):
+        """The trials at `block_pos` gathered, zero-padded to `rows` rows
+        and uploaded to `device`."""
+        if block_pos:
+            block = self._gather_batch(data, block_pos)
+            if len(block_pos) < rows:
+                pad = np.zeros((rows - len(block_pos),) + block.shape[1:], block.dtype)
+                block = np.concatenate([block, pad], axis=0)
+        else:
+            block = np.zeros((rows,) + tuple(shp), in_dtype)  # an all-padding shard
+        with warnings.catch_warnings():
+            # a view of a read-back resident payload is read-only; the
+            # tensor is only read
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            tensor = torch.from_numpy(np.ascontiguousarray(block)).to(device)
+        _count_transfer("h2d", block.nbytes)
+        return tensor
+
     def _host_chunks(self, data, positions, shp, chunk, plan):
-        """Chunks over the host payload: gather, pad to `chunk` rows, split
-        into one block per trial shard and upload each to its shard's
-        device, with the uploads kept in the device trial store for later
-        analyses of the same (selected) payload on the same mesh; `plan`
-        (the bucket's chunk-plan entry) records which of the two it was.
-        Yields ``(list of device blocks, positions)``."""
+        """Chunks over the host payload: each chunk's rows in one block per
+        trial shard, each gathered, padded to the shard's rows and
+        uploaded to its shard's device (a shard of another process: None,
+        never gathered), with the uploads kept in the device trial store
+        for later analyses of the same (selected) payload on the same
+        mesh; `plan` (the bucket's chunk-plan entry) records which of the
+        two it was. Yields ``(list of device blocks, positions)``."""
         in_dtype = np.dtype(data.data.dtype)
         grid = self._grid
+        n_shard = grid.shape[0]
+        rows = chunk // n_shard
+        owned = self._grid_ranks[:, 0] == process_rank()
         cache_key = (
             getattr(data, "_cache_token", None),
             self._selection_fingerprint(data),
             shp,
             chunk,
-            Mesh(grid).key,
+            Mesh(grid, ranks=self._grid_ranks).key,
             str(in_dtype),
             tuple(positions),
         )
@@ -792,25 +845,16 @@ class ComputationalRoutine:
             if cached is not None:
                 yield cached[k], chunk_pos
                 continue
-            batch = self._gather_batch(data, chunk_pos)
-            if len(chunk_pos) < chunk:
-                pad = np.zeros((chunk - len(chunk_pos),) + batch.shape[1:], batch.dtype)
-                batch = np.concatenate([batch, pad], axis=0)
-            with warnings.catch_warnings():
-                # a view of a read-back resident payload is read-only; the
-                # tensors are only read
-                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-                shards, _ = shard_batch(batch, Mesh(grid))
-            blocks = [pieces[0] for pieces in shards]
-            _count_transfer("h2d", batch.nbytes)
+            blocks = [self._upload_block(data, chunk_pos[i * rows : i * rows + nv], rows, shp,
+                                         in_dtype, grid[i, 0]) if owned[i] else None
+                      for i, nv in enumerate(_shard_rows(len(chunk_pos), rows, n_shard))]
             if built is not None:
                 built.append(blocks)
-                if len(built) * batch.nbytes > DEVICE_CACHE_BYTES:
+                if sum(_nbytes(t) for bl in built for t in bl) > DEVICE_CACHE_BYTES:
                     built = None  # the store cannot hold the bucket: keep no chunk
             yield blocks, chunk_pos
         if built:
-            nbytes = sum(b.numel() * b.element_size() for blocks in built for b in blocks)
-            _device_cache_put(cache_key, built, nbytes)
+            _device_cache_put(cache_key, built, sum(_nbytes(t) for bl in built for t in bl))
 
     def _merge_channel_info(self, infos, device):
         """One info dict from the channel pieces' info dicts: boolean flags
@@ -866,6 +910,24 @@ class ComputationalRoutine:
                 return res, self._merge_channel_info([r[1] for r in results], home)
             return gather_shards(results, home, dim=-1)
 
+    def _shard_result(self, i, block, nv, aux_all, a0, rows, fused, chan_axis):
+        """Trial shard `i`'s result on its device: the fused partial sum of
+        its block, else its `nv` valid rows computed (``(rows, info)``
+        where the routine returns info) and, without keeptrials, summed.
+        The auxiliary inputs' rows start at `a0`."""
+        device = self._grid[i, 0]
+        n_aux = rows if fused else nv
+        res = _dispatch_with_recovery(
+            lambda: self._shard_call(
+                i, block if fused else block[:nv], nv,
+                [self._upload_aux(a, a0, nv, n_aux, device) for a in aux_all], fused, chan_axis),
+            what="{} chunk dispatch".format(self.__class__.__name__))
+        if fused or self.keeptrials:
+            return res
+        if isinstance(res, tuple):
+            return res[0].sum(dim=0), res[1]
+        return res.sum(dim=0)
+
     def _run(self, data, out):
         sdim = self.out_stackingdim
         fused_sum = not self.keeptrials and hasattr(self, "process_batch_sum")
@@ -891,6 +953,7 @@ class ComputationalRoutine:
 
         grid = self._grid
         n_shard = grid.shape[0]
+        owned = self._grid_ranks[:, 0] == process_rank()
         # the batch axis of the input's channels, for a channel split
         chan_axis = data.dimord.index("channel") + 1 if "channel" in data.dimord else None
         out_dtype = _torch_dtype(self.dtype) if self.keeptrials else None
@@ -901,7 +964,6 @@ class ComputationalRoutine:
         records = []
         acc = None  # on-device sum over trials for keeptrials=False
         itemsize = np.dtype(data.data.dtype).itemsize
-        name = self.__class__.__name__
         for shp, positions in self.buckets.items():
             aux_all = tuple(np.asarray(a) for a in self.per_trial_inputs(data, positions))
             aux_bytes = sum(int(np.prod(a.shape[1:])) * a.itemsize for a in aux_all)
@@ -926,34 +988,28 @@ class ComputationalRoutine:
                 plan["shard_rows"].append(shard_valid)
                 part, shards = None, []
                 for i, (block, nv) in enumerate(zip(blocks, shard_valid)):
-                    device = grid[i, 0]
-                    if fused_sum:
-                        # every shard launches, an all-padding one with
-                        # n_valid = 0
-                        res = _dispatch_with_recovery(
-                            lambda: self._shard_call(
-                                i, block, nv,
-                                [self._upload_aux(a, c0 + i * rows, nv, rows, device)
-                                 for a in aux_all],
-                                True, chan_axis),
-                            what="{} chunk dispatch".format(name))
-                        part = res if part is None else part + res.to(part.device)
+                    # every shard of a fused sum launches, an all-padding
+                    # one with n_valid = 0; otherwise those that hold rows
+                    if not (fused_sum or nv):
                         continue
-                    if nv == 0:
-                        continue
-                    res = _dispatch_with_recovery(
-                        lambda: self._shard_call(
-                            i, block[:nv],
-                            nv, [self._upload_aux(a, c0 + i * rows, nv, nv, device)
-                                 for a in aux_all],
-                            False, chan_axis),
-                        what="{} chunk dispatch".format(name))
+                    res = aux_info = None
+                    if owned[i]:
+                        res = self._shard_result(i, block, nv, aux_all, c0 + i * rows, rows,
+                                                 fused_sum, chan_axis)
+                        if isinstance(res, tuple):
+                            res, aux_info = res
+                    if self._shared:
+                        # the owner's result on every rank: the partial where
+                        # the shards are summed, the rows on the host
+                        res, aux_info = share_from(
+                            res, int(self._grid_ranks[i, 0]),
+                            self._home if not self.keeptrials else "cpu",
+                            info=None if aux_info is None else {
+                                k: torch.as_tensor(v).cpu().numpy() for k, v in aux_info.items()})
                     shard_pos = chunk_pos[i * rows : i * rows + nv]
-                    if isinstance(res, tuple):
-                        res, aux_info = res
+                    if aux_info is not None:
                         self._accumulate_aux(aux_info, shard_pos)
                     if not self.keeptrials:
-                        res = res.sum(dim=0)
                         part = res if part is None else part + res.to(part.device)
                     elif resident_out:
                         # the host route rounds to the output dtype on the
@@ -966,8 +1022,9 @@ class ComputationalRoutine:
                     else:
                         _readback_rows(host_out, res, shard_pos, offsets, sdim)
                 if part is not None:
-                    # the trial shards' partials, summed on the mesh's first
-                    # position in shard order (JAX's psum)
+                    # the trial shards' partials, summed in shard order on
+                    # the mesh's first position, or on each rank's home
+                    # position where the mesh spans processes (JAX's psum)
                     acc = part if acc is None else acc + part
                 if shards:
                     records.append(Record(tuple(chunk_pos), tuple(shards), tuple(out_shp), chunk))

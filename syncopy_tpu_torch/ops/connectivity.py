@@ -499,7 +499,8 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     ``(Hfunc (F, N, N), Sigma (N, N), converged, err, n_iter)`` on the
     axis's first position, as :func:`wilson_sf` returns them.
     """
-    from ..parallel.mesh import active_mesh, axis_devices, check_mesh, device_context, split_along
+    from ..parallel.mesh import (active_mesh, axis_devices, check_mesh, check_one_process,
+                                 device_context, split_along)
 
     if mesh is None:
         mesh = active_mesh()
@@ -507,7 +508,7 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
             raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
     if axis_name is None:
         axis_name = mesh.axis_names[0]
-    devices = axis_devices(check_mesh(mesh), axis_name)
+    devices = axis_devices(check_one_process(check_mesh(mesh), "wilson_sf_sharded"), axis_name)
     home = devices[0]
     CSD = torch.as_tensor(CSD).to(home)
     F, N = CSD.shape[0], CSD.shape[-1]
@@ -602,13 +603,15 @@ def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_m
     Returns ``(G (F, N, N) float64, info)``, `info` holding the frontend's
     ``out.info`` diagnostics.
     """
-    from ..parallel.mesh import active_mesh, axis_devices, check_mesh, device_context
+    from ..parallel.mesh import (active_mesh, axis_devices, check_mesh, check_one_process,
+                                 device_context)
 
     if mesh is None:
         mesh = active_mesh()
         if mesh is None:
             raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
-    home = axis_devices(check_mesh(mesh), axis_name or mesh.axis_names[0])[0]
+    home = axis_devices(check_one_process(check_mesh(mesh), "granger_sharded"),
+                        axis_name or mesh.axis_names[0])[0]
     with device_context(home):
         CSD = torch.as_tensor(CSD).to(home, torch.complex128)
         CSDreg, factor, ini_cn = regularize_csd(CSD, cond_max=cond_max, eps_max=1e-1)

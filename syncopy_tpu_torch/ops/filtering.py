@@ -154,13 +154,14 @@ def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
     y : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor`, float32
         (nSamples / n, nChannels) blocks along dim 0, one per position
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, device_context,
-                                 halo_exchange, split_along)
+    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+                                 device_context, halo_exchange, split_along)
 
     K = len(fkernel)
     if K % 2 == 0:
         raise ValueError("apply_fir_time_sharded requires an odd-length kernel")
-    devices = axis_devices(check_mesh(mesh), axis_name)
+    devices = axis_devices(check_one_process(check_mesh(mesh), "apply_fir_time_sharded"),
+                           axis_name)
     T = x.shape[0]
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")

@@ -111,10 +111,11 @@ def mtmconvol_time_sharded(data, tapers, nperseg, mesh, axis_name="trial", polyr
     spec : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor` of
         (nSamples / n, nTaper|1, nFreq, nChannels) blocks along dim 0
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, device_context,
-                                 halo_exchange, split_along)
+    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+                                 device_context, halo_exchange, split_along)
 
-    devices = axis_devices(check_mesh(mesh), axis_name)
+    devices = axis_devices(check_one_process(check_mesh(mesh), "mtmconvol_time_sharded"),
+                           axis_name)
     T = data.shape[0]
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")

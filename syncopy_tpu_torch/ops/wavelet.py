@@ -365,10 +365,10 @@ def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
     spec : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor` of
         (nScales, nSamples / n, nChannels) complex64 blocks along dim 1
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, device_context,
-                                 halo_exchange, split_along)
+    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+                                 device_context, halo_exchange, split_along)
 
-    devices = axis_devices(check_mesh(mesh), axis_name)
+    devices = axis_devices(check_one_process(check_mesh(mesh), "cwt_time_sharded"), axis_name)
     T = data.shape[0]
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")

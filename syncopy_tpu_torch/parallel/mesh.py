@@ -14,10 +14,20 @@
 # apply_fir_time_sharded) split one axis over the positions of a mesh axis.
 # Positions on one device run one after another on that device's current
 # stream; a copy between devices is a blocking `Tensor.to`, which orders
-# itself after the source stream's work. Multi-host (jax.distributed) is
-# not ported (MULTI_HOST_ITEM).
+# itself after the source stream's work.
+#
+# Several processes (the JAX package's jax.distributed runtime) join one
+# torch.distributed cluster through init_distributed; each position of a
+# mesh then has an owner rank (`Mesh.ranks`), and the default mesh spans
+# every rank's devices in rank order. Every rank calls the same analysis
+# on the same data; a rank computes only the trial shards it owns, and
+# each shard's result reaches the other ranks by a broadcast from its
+# owner (share_from), so every rank ends the call holding the whole,
+# identical result. The sharded routines stay within one process
+# (CROSS_PROCESS_ITEM).
 
 import contextlib
+import datetime
 import math
 from collections import namedtuple
 
@@ -46,6 +56,12 @@ __all__ = [
     "split_along",
     "halo_exchange",
     "init_distributed",
+    "process_rank",
+    "process_count",
+    "share_from",
+    "collective_counts",
+    "reset_collective_counts",
+    "check_one_process",
     "cluster_cleanup",
     "esi_cluster_setup",
 ]
@@ -53,24 +69,43 @@ __all__ = [
 TRIAL_AXIS = "trial"
 CHANNEL_AXIS = "channel"
 
-#: where the multi-host runtime is queued
-MULTI_HOST_ITEM = "ROADMAP Queue 1 item 18 (multi-host)"
+#: where the sharded routines on a mesh that spans processes are queued
+CROSS_PROCESS_ITEM = "ROADMAP Queue 1 item 19 (the sharded routines across processes)"
+
+#: seconds a rank waits for its peers, to join and in each collective,
+#: before it raises
+DEFAULT_TIMEOUT = 300.0
 
 _ACTIVE_MESH = None
+
+#: the joined cluster (init_distributed): every rank's positions in rank
+#: order as (device, rank) pairs, and the device collectives move tensors
+#: through; None on a single host
+_CLUSTER = None
+
+#: tensor bytes moved by share_from since reset_collective_counts():
+#: "sent" counts a broadcast once for each receiving rank
+_COLLECTIVE_BYTES = {"sent": 0, "received": 0}
 
 
 class Mesh:
     """
     Devices on the named axes ``("trial", "channel")``: `devices` is a 2-D
-    object array of :class:`torch.device`, in which a device may repeat.
-    ``shape`` maps each axis name to its length, as
-    ``jax.sharding.Mesh.shape`` does. Two meshes are equal when they hold
-    the same devices at the same positions.
+    object array of :class:`torch.device`, in which a device may repeat,
+    and `ranks` an integer array of the same shape naming the process
+    that owns each position (default: this process everywhere); a
+    device names a card of its owner's host. ``shape`` maps each axis
+    name to its length, as ``jax.sharding.Mesh.shape`` does. Two meshes
+    are equal when they hold the same devices of the same ranks at the
+    same positions.
     """
 
-    def __init__(self, devices, axis_names=(TRIAL_AXIS, CHANNEL_AXIS)):
+    def __init__(self, devices, axis_names=(TRIAL_AXIS, CHANNEL_AXIS), ranks=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        if ranks is None:
+            ranks = np.full(devices.shape, process_rank(), dtype=np.int64)
+        self.ranks = np.asarray(ranks, dtype=np.int64).reshape(devices.shape)
 
     @property
     def shape(self):
@@ -83,9 +118,28 @@ class Mesh:
         return self.devices.flat[0]
 
     @property
+    def crosses_processes(self):
+        """True when a position belongs to another process than this one:
+        shard results then travel between ranks (:func:`share_from`)."""
+        return bool((self.ranks != process_rank()).any())
+
+    def home_device(self):
+        """Where this process combines the shards' results: its first
+        position in the mesh (the mesh's first position in one process),
+        else the port's device."""
+        own = [d for d, r in zip(self.devices.flat, self.ranks.flat) if r == process_rank()]
+        if own:
+            return own[0]
+        from ..engine.routine import default_device
+
+        return default_device()
+
+    @property
     def key(self):
-        """Hashable description: the shape and every position's device."""
-        return (tuple(self.devices.shape), tuple(str(d) for d in self.devices.flat))
+        """Hashable description: the shape and every position's device and
+        owner rank."""
+        return (tuple(self.devices.shape), tuple(str(d) for d in self.devices.flat),
+                tuple(int(r) for r in self.ranks.flat))
 
     def __eq__(self, other):
         return isinstance(other, Mesh) and self.key == other.key
@@ -94,9 +148,10 @@ class Mesh:
         return hash(self.key)
 
     def __repr__(self):
-        return "Mesh({}, axis_names={}, devices=[{}])".format(
+        return "Mesh({}, axis_names={}, devices=[{}], ranks=[{}])".format(
             ", ".join("{}={}".format(k, v) for k, v in self.shape.items()), self.axis_names,
-            ", ".join(str(d) for d in self.devices.flat))
+            ", ".join(str(d) for d in self.devices.flat),
+            ", ".join(str(r) for r in self.ranks.flat))
 
 
 def _canonical(device):
@@ -108,30 +163,170 @@ def _canonical(device):
     return device
 
 
-def _visible_devices():
-    """The devices a mesh spans by default: the CUDA cards, or the CPU
-    where the port was set to compute there."""
+def _cluster():
+    """The joined cluster's record, or None on a single host (also once
+    the process group has been destroyed)."""
+    global _CLUSTER
+    if _CLUSTER is not None and not torch.distributed.is_initialized():
+        _CLUSTER = None
+    return _CLUSTER
+
+
+def process_rank():
+    """This process's rank in the joined cluster; 0 on a single host."""
+    return torch.distributed.get_rank() if _cluster() is not None else 0
+
+
+def process_count():
+    """The processes of the joined cluster; 1 on a single host."""
+    return torch.distributed.get_world_size() if _cluster() is not None else 1
+
+
+def _visible_positions():
+    """The positions a mesh spans by default, as (device, owner rank)
+    pairs: every rank's devices in rank order in a joined cluster (as
+    ``jax.devices()`` orders them by process), else this host's CUDA
+    cards, or the CPU where the port was set to compute there."""
+    cluster = _cluster()
+    if cluster is not None:
+        return list(cluster["positions"])
     from ..engine.routine import default_device
 
     device = default_device()
     if device.type == "cpu":
-        return [device]
-    return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+        return [(device, 0)]
+    return [(torch.device("cuda", k), 0) for k in range(torch.cuda.device_count())]
 
 
-def init_distributed(**kwargs):
+def init_distributed(coordinator_address=None, num_processes=None, process_id=None,
+                     backend=None, local_devices=None, timeout=DEFAULT_TIMEOUT):
     """
-    Start a multi-host runtime. The port runs on one host: without a
-    cluster to join this is a no-op, as the JAX package's is when it
-    finds none; a request for more than one process raises.
+    Join a multi-process cluster on ``torch.distributed`` (the counterpart
+    of the JAX package's ``jax.distributed.initialize``). Without
+    `coordinator_address` and with at most one process this is the
+    single-host no-op. Asked for a cluster it joins or raises
+    SPYParallelError; it never goes on as a single host.
+
+    Parameters
+    ----------
+    coordinator_address : str
+        ``"host:port"`` of rank 0, which serves the rendezvous
+        (``init_method="tcp://host:port"``).
+    num_processes : int
+        The cluster's processes (``world_size``).
+    process_id : int
+        This process's rank (``rank``).
+    backend : {"nccl", "gloo"} or None
+        Default: ``"nccl"`` where the port computes on CUDA
+        (:func:`~syncopy_tpu_torch.set_device`), ``"gloo"`` on the CPU.
+        NCCL refuses two ranks on one card: such ranks name ``"gloo"``,
+        whose collectives go through a CPU staging copy.
+    local_devices : list of torch.device (or str) or None
+        This rank's mesh positions, in order. Default: ``cuda:(rank %
+        device_count)`` where the port computes on CUDA, else the CPU.
+    timeout : float
+        Seconds to wait for the peers, to join and in every collective,
+        before raising: a rank whose peer died fails instead of waiting.
+
+    After joining, :func:`make_mesh` and :func:`esi_cluster_setup` default
+    to every rank's positions in rank order.
     """
-    n_proc = kwargs.get("num_processes")
-    if kwargs.get("coordinator_address") is not None or (n_proc is not None and n_proc > 1):
-        raise not_ported("a multi-host runtime", MULTI_HOST_ITEM)
-    get_logger().info("init_distributed: single-host mode (%s)", kwargs or "no arguments")
+    global _CLUSTER
+    n_proc = 1 if num_processes is None else int(num_processes)
+    if coordinator_address is None and n_proc <= 1:
+        get_logger().info("init_distributed: single-host mode")
+        return
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise SPYValueError(
+            legal="coordinator_address, num_processes and process_id for a cluster",
+            varname="init_distributed",
+            actual="coordinator_address={!r}, num_processes={!r}, process_id={!r}".format(
+                coordinator_address, num_processes, process_id))
+    if not torch.distributed.is_available():
+        raise SPYParallelError("init_distributed: this PyTorch has no torch.distributed")
+    if torch.distributed.is_initialized():
+        raise SPYParallelError("init_distributed: this process has joined a cluster already")
+    from ..engine.routine import default_device
+
+    port = default_device()
+    rank = int(process_id)
+    if backend is None:
+        backend = "nccl" if port.type == "cuda" else "gloo"
+    if local_devices is None:
+        local_devices = [port if port.type == "cpu"
+                         else torch.device("cuda", rank % torch.cuda.device_count())]
+    local = [_canonical(d) for d in local_devices]
+    for d in local:
+        if d.type != port.type:
+            raise SPYValueError(legal="local devices of the port's device type ({})".format(
+                port.type), varname="local_devices", actual=str(d))
+    if backend == "nccl":
+        if port.type != "cuda":
+            raise SPYValueError(legal="'gloo' on the CPU", varname="backend", actual=backend)
+        torch.cuda.set_device(local[0])
+    try:
+        torch.distributed.init_process_group(
+            backend=backend, init_method="tcp://{}".format(coordinator_address),
+            world_size=n_proc, rank=rank, timeout=datetime.timedelta(seconds=timeout))
+    except (RuntimeError, ValueError) as exc:
+        raise SPYParallelError(
+            "rank {} of {} could not join the cluster at {} over {} within {} s: {}".format(
+                rank, n_proc, coordinator_address, backend, timeout, exc)) from exc
+    gathered = [None] * n_proc
+    torch.distributed.all_gather_object(gathered, [str(d) for d in local])
+    _CLUSTER = {
+        "positions": [(torch.device(d), r) for r, devs in enumerate(gathered) for d in devs],
+        "transport": local[0] if backend == "nccl" else torch.device("cpu"),
+    }
+    get_logger().info("init_distributed: rank %d of %d over %s, positions %s", rank, n_proc,
+                      backend, gathered)
 
 
-def make_mesh(n_trial=None, n_channel=1, devices=None):
+def share_from(tensor, src, device, info=None):
+    """
+    Rank `src`'s `tensor`, and its picklable `info`, on every rank of the
+    joined cluster: `src` passes them, every other rank passes None and
+    receives them; every rank must call this in the same order. The
+    bytes travel bit for bit (``-0.0`` and NaN payloads included) in one
+    ``broadcast``, after one of the shape, dtype and `info`. The transport
+    is this rank's card under NCCL, a CPU staging tensor under gloo,
+    filled and emptied by explicit copies. Returns ``(tensor on `device`,
+    info)``; `src` gets its own tensor back, copied only where it lies
+    elsewhere.
+    """
+    dist = torch.distributed
+    transport = _cluster()["transport"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    meta = [(tuple(tensor.shape), tensor.dtype, info) if rank == src else None]
+    dist.broadcast_object_list(meta, src=src, device=transport)
+    shape, dtype, info = meta[0]
+    if rank == src:
+        buf = tensor.detach().contiguous().reshape(-1).view(torch.uint8).to(transport)
+        _COLLECTIVE_BYTES["sent"] += buf.numel() * (world - 1)
+    else:
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=transport)
+        _COLLECTIVE_BYTES["received"] += nbytes
+    if buf.numel():
+        dist.broadcast(buf, src=src)
+    device = torch.device(device)
+    if rank == src and buf.device != device:
+        return tensor.to(device), info
+    return buf.view(dtype).reshape(shape).to(device), info
+
+
+def collective_counts():
+    """The tensor bytes :func:`share_from` sent and received since the
+    last :func:`reset_collective_counts`."""
+    return dict(_COLLECTIVE_BYTES)
+
+
+def reset_collective_counts():
+    for k in _COLLECTIVE_BYTES:
+        _COLLECTIVE_BYTES[k] = 0
+
+
+def make_mesh(n_trial=None, n_channel=1, devices=None, ranks=None):
     """
     Build a :class:`Mesh` with named axes ``("trial", "channel")``.
 
@@ -148,12 +343,25 @@ def make_mesh(n_trial=None, n_channel=1, devices=None):
         shards on one card, and ``devices=["cpu"] * 8`` with
         ``n_trial=4, n_channel=2`` is the counterpart of the JAX tests'
         eight virtual host devices. Default: the visible CUDA cards (the
-        CPU after ``set_device("cpu")``).
+        CPU after ``set_device("cpu")``); in a joined cluster
+        (:func:`init_distributed`) every rank's positions in rank order.
+    ranks : list of int or None
+        The owner rank of each of `devices`. Default: this process for
+        every given device.
 
     Every position must be of the port's device type (:func:`set_device`)
     when the mesh is used; :func:`check_mesh` says so.
     """
-    devices = _visible_devices() if devices is None else [torch.device(d) for d in devices]
+    if devices is None:
+        if ranks is not None:
+            raise SPYValueError(legal="ranks only with devices", varname="ranks",
+                                actual=str(ranks))
+        devices, ranks = zip(*_visible_positions())
+    devices = [torch.device(d) for d in devices]
+    ranks = [process_rank()] * len(devices) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) != len(devices):
+        raise SPYValueError(legal="one rank per device", varname="ranks",
+                            actual="{} ranks for {} devices".format(len(ranks), len(devices)))
     for d in devices:
         if d.type not in ("cpu", "cuda"):
             raise SPYValueError(legal="cpu or cuda devices", varname="devices", actual=str(d))
@@ -167,20 +375,34 @@ def make_mesh(n_trial=None, n_channel=1, devices=None):
     dev_arr = np.empty((n_trial, n_channel), dtype=object)
     for k, d in enumerate(devices[: n_trial * n_channel]):
         dev_arr[k // n_channel, k % n_channel] = _canonical(d)
-    return Mesh(dev_arr)
+    return Mesh(dev_arr, ranks=np.reshape(ranks[: n_trial * n_channel], (n_trial, n_channel)))
 
 
 def check_mesh(mesh):
     """
-    Raise SPYValueError unless every position of `mesh` is of the port's
-    device type (:func:`~syncopy_tpu_torch.set_device`) and every CUDA
-    position names a card that exists: a mesh never moves work to the CPU
-    when a card was asked for, nor the other way round.
+    Raise SPYValueError unless every position of `mesh` that this process
+    owns is of the port's device type (:func:`~syncopy_tpu_torch.set_device`)
+    and every such CUDA position names a card of this host: a mesh never
+    moves work to the CPU when a card was asked for, nor the other way
+    round. Raise SPYParallelError where a trial shard's channel positions
+    belong to more than one process (the channel split is a copy within
+    one process) or a position's owner is not a rank of the cluster.
     """
     from ..engine.routine import default_device
 
+    for i, row in enumerate(mesh.ranks):
+        if len(set(row.tolist())) > 1:
+            raise SPYParallelError(
+                "trial shard {} of the mesh has channel positions on ranks {}: a trial "
+                "shard's channel positions must belong to one process".format(i, row.tolist()))
+    rank, world = process_rank(), process_count()
+    if mesh.ranks.min() < 0 or mesh.ranks.max() >= world:
+        raise SPYParallelError("the mesh has positions of ranks {} but the cluster has {} "
+                               "process(es)".format(sorted(set(mesh.ranks.flat)), world))
     port = default_device()
-    for d in mesh.devices.flat:
+    for d, r in zip(mesh.devices.flat, mesh.ranks.flat):
+        if r != rank:
+            continue
         if d.type != port.type:
             raise SPYValueError(
                 legal="a mesh on the port's device type ({})".format(port.type),
@@ -189,6 +411,15 @@ def check_mesh(mesh):
             raise SPYValueError(
                 legal="a CUDA index below the {} visible cards".format(torch.cuda.device_count()),
                 varname="mesh", actual=str(d))
+    return mesh
+
+
+def check_one_process(mesh, what):
+    """Raise ``not_ported`` naming :data:`CROSS_PROCESS_ITEM` where `mesh`
+    has positions of another process: the sharded routines exchange
+    their blocks within one process only."""
+    if mesh.crosses_processes:
+        raise not_ported("{} on a mesh that spans processes".format(what), CROSS_PROCESS_ITEM)
     return mesh
 
 
@@ -226,19 +457,20 @@ def cluster_cleanup(client=None):
 def esi_cluster_setup(n_workers=None, **kwargs):
     """
     Stand-in for the reference's ACME SLURM helper: builds a trial mesh
-    over `n_workers` visible devices (all if None), installs it as the
-    active mesh and returns it. Extra ACME keywords are accepted and
-    ignored.
+    over `n_workers` visible positions (all if None; every rank's in a
+    joined cluster), installs it as the active mesh and returns it. Extra
+    ACME keywords are accepted and ignored.
     """
-    devices = _visible_devices()
+    positions = _visible_positions()
     if n_workers is not None:
-        if n_workers > len(devices):
+        if n_workers > len(positions):
             raise SPYParallelError(
                 "{} workers requested but only {} devices available".format(
-                    n_workers, len(devices))
+                    n_workers, len(positions))
             )
-        devices = devices[:n_workers]
-    mesh = make_mesh(devices=devices)
+        positions = positions[:n_workers]
+    devices, ranks = zip(*positions)
+    mesh = make_mesh(devices=devices, ranks=ranks)
     set_active_mesh(mesh)
     return mesh
 
@@ -250,7 +482,8 @@ def resolve_parallel(parallel=None):
 
     - ``None``: the active mesh if one is installed, else None;
     - ``True``: the active mesh if installed, else a mesh over all visible
-      devices (a warning and None where only one is visible);
+      positions, every rank's in a joined cluster (a warning and None
+      where only one is visible);
     - ``False``: None.
 
     The mesh is checked with :func:`check_mesh`.
@@ -259,7 +492,7 @@ def resolve_parallel(parallel=None):
         return None
     mesh = _ACTIVE_MESH
     if mesh is None and parallel:
-        if len(_visible_devices()) == 1:
+        if len(_visible_positions()) == 1:
             SPYWarning(
                 "`parallel=True` but only ONE device is visible: running on one "
                 "device (the analog of the reference's 'no parallel computing "

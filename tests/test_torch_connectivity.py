@@ -250,9 +250,10 @@ def test_coherence_rejects_keeptrials_and_single_trial():
 def test_data_methods_outside_the_slice_not_ported_yet(tmp_path):
     """The data methods that once raised here are ported (arithmetic,
     save, plotting, NWB export; tests/test_torch_io.py and its siblings
-    hold them to the JAX package), and so is the mesh over several
-    positions (tests/test_torch_mesh_invariance.py); what is still not
-    ported, a multi-host runtime, raises naming its ROADMAP item."""
+    hold them to the JAX package), and so are the mesh over several
+    positions (tests/test_torch_mesh_invariance.py) and the multi-host
+    runtime, a no-op without a cluster that asks for all three cluster
+    keywords (tests/test_torch_multihost.py joins one)."""
     import matplotlib.pyplot as plt
 
     pdata, jdata = _both([100, 150], 3)
@@ -265,9 +266,10 @@ def test_data_methods_outside_the_slice_not_ported_yet(tmp_path):
     assert os.path.isfile(str(tmp_path / "x.nwb"))
     pdata._close_hdf()
     assert spt.make_mesh(devices=["cpu", "cpu"]).shape == {"trial": 2, "channel": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        spt.init_distributed(coordinator_address="localhost:1234", num_processes=2,
-                             process_id=0)
+    spt.init_distributed()
+    assert spt.parallel.process_count() == 1
+    with pytest.raises(spt.shared.errors.SPYValueError, match="process_id"):
+        spt.init_distributed(coordinator_address="localhost:1234", num_processes=2)
 
 
 def test_from_arrays_builds_the_same_object():

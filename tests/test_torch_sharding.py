@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 #
 # Sharding in the port (the twin of tests/test_sharding.py, without its
-# multi-host and graft-entry classes): the halo'd time-sharded FIR, STFT
+# multi-host and graft-entry classes: tests/test_torch_multihost.py runs
+# the port's cluster): the halo'd time-sharded FIR, STFT
 # and CWT and the mesh-sharded Wilson factorization and Granger, each held
 # to the JAX package's sharded version on its 4 x 2 `testmesh` and to the
 # port's unsharded function, on a 4 x 2 mesh of CPU positions; every
@@ -101,10 +102,34 @@ class TestMeshHelpers:
         with pytest.raises(spt.shared.errors.SPYValueError, match="port's device"):
             spt.parallel.check_mesh(spt.make_mesh(devices=["cpu", "cuda:0"]))
 
-    def test_multi_host_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            spt.init_distributed(num_processes=2, process_id=0)
+    def test_init_distributed_without_a_cluster_is_a_no_op(self, mesh):
         spt.init_distributed()
+        spt.init_distributed(num_processes=1)
+        assert not torch.distributed.is_initialized()
+        assert (spt.parallel.process_rank(), spt.parallel.process_count()) == (0, 1)
+        assert not mesh.crosses_processes and (mesh.ranks == 0).all()
+        assert spt.make_mesh().ranks.tolist() == [[0]]
+
+    def test_init_distributed_maps_the_jax_keywords(self, monkeypatch):
+        import datetime
+
+        calls = []
+
+        def record(**kwargs):
+            calls.append(kwargs)
+            raise RuntimeError("recorded")
+
+        monkeypatch.setattr(torch.distributed, "init_process_group", record)
+        with pytest.raises(spt.shared.errors.SPYParallelError, match="rank 1 of 2"):
+            spt.init_distributed(coordinator_address="localhost:1234", num_processes=2,
+                                 process_id=1, timeout=5)
+        assert calls == [{"backend": "gloo", "init_method": "tcp://localhost:1234",
+                          "world_size": 2, "rank": 1,
+                          "timeout": datetime.timedelta(seconds=5)}]
+        # a cluster request names all three; it never goes on single-host
+        with pytest.raises(spt.shared.errors.SPYValueError, match="process_id"):
+            spt.init_distributed(num_processes=2, process_id=0)
+        assert len(calls) == 1 and not torch.distributed.is_initialized()
 
 
 # ------------------------------------------------------------------------ #
