@@ -167,12 +167,26 @@ Phases, each of which raises on failure (non-zero exit):
    Butterworth launch per rank), receives the other's partial or rows by
    broadcast and holds the whole result, bitwise equal to rank 0's and to
    a one-process 2 x 1 mesh's, within 1e-6 of its own parallel=False call
-   (the band-pass bitwise) and within 1e-5 of float64; each rank prints
-   the bytes it sent and received through the collectives, and the mesh
-   wall beside rank 0's parallel=False and one-process mesh walls (3 calls
-   each, in turns). A rank that fails or outlives its timeout fails the
-   phase. 19e: where more than one card is visible, one rank per card over
-   NCCL; else "not run: one card".
+   (the band-pass bitwise) and within 1e-5 of float64. Then the five
+   sharded routines on the same mesh at phase 18d's shapes:
+   apply_fir_time_sharded, mtmconvol_time_sharded and cwt_time_sharded on
+   the (250000, 64) recording (halos by point-to-point sends, each rank
+   transforming its half, then every rank gathering the whole result),
+   wilson_sf_sharded and granger_sharded on phase 8's 64-channel CSD
+   (handed to the ranks in an .npz; layout swaps and each block's error
+   by point-to-point sends), each bitwise equal to rank 0's and to a
+   one-process 2 x 1 mesh's and within phase 18d's bars of the unsharded
+   function (1e-5 of the maximum; Wilson 1e-8; Granger 1e-6 absolute).
+   Each rank prints the bytes it sent and received through the collectives, for
+   the sharded routines in the routine and in the gather beside the count
+   predicted from the shapes and Wilson's steps (they must be equal; the
+   halos are also held to this script's own count), and the mesh wall
+   beside rank 0's unsharded (parallel=False) and one-process mesh walls
+   (3 calls each, in turns). No launch of the port's kernels comes from
+   the sharded routines (cuFFT, cuBLAS and cuSOLVER calls). A rank that
+   fails or outlives its timeout fails the phase. 19e: where more than one
+   card is visible, one rank per card over NCCL; else "not run: one
+   card".
 Phases 9 to 16 each print their warm wall, peak device memory and peak
 host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
 these paths run no CUDA kernel of the port. Phases 12 to 15 also print
@@ -2876,40 +2890,46 @@ MULTIHOST_KERNELS = {"coh": "csd_accumulate_tiled", "ppc": "ppc_accumulate_tiled
                      "bandpass": "sosfiltfilt"}
 
 
-def multihost_phase(label, n_ranks, backend):
+def multihost_phase(label, n_ranks, backend, csd):
     """Phase 19 (19e): `n_ranks` processes of the port's multihost worker
     at full size, rank r on cuda:(r % cards), joined over `backend`; each
-    rank runs coh, ppc and the band-pass on a mesh over the ranks and
-    checks itself (see the worker). Here: every rank exited 0 within the
-    run's timeout, launched its frontend's kernel exactly once and no
-    other, is within 1e-6 of its own unsharded call (the band-pass
-    bitwise); prints each rank's lines and a summary. Returns the launches
-    summed over the ranks, by kernel."""
+    rank runs coh, ppc and the band-pass, then the five sharded routines
+    (Wilson and Granger on the complex128 CSD `csd`) on a mesh over the
+    ranks and checks itself (see the worker). Here: every rank exited 0
+    within the run's timeout, launched its frontend's kernel exactly once
+    and no other, is within 1e-6 of its own unsharded call (the band-pass
+    bitwise); each sharded routine's bytes equal the worker's count and,
+    for the halos, this script's; prints each rank's lines and a summary.
+    Returns the launches summed over the ranks, by kernel."""
     import socket
+    import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=root)
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "syncopy_tpu_torch.parallel.multihost_worker", str(r),
-         str(n_ranks), str(port), "--device", "cuda", "--backend", backend, "--size", "full",
-         "--reps", "3", "--timeout", str(MULTIHOST_RANK_TIMEOUT)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=root)
-        for r in range(n_ranks)]
-    outs = []
-    try:
-        for p in procs:
-            left = t0 + MULTIHOST_RUN_TIMEOUT - time.perf_counter()
-            out, _ = p.communicate(timeout=max(1.0, left))
-            outs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csd_") as tmp:
+        csd_path = os.path.join(tmp, "granger_csd.npz")
+        np.savez(csd_path, csd=csd)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "syncopy_tpu_torch.parallel.multihost_worker", str(r),
+             str(n_ranks), str(port), "--device", "cuda", "--backend", backend, "--size", "full",
+             "--reps", "3", "--timeout", str(MULTIHOST_RANK_TIMEOUT), "--csd", csd_path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=root)
+            for r in range(n_ranks)]
+        outs = []
+        try:
+            for p in procs:
+                left = t0 + MULTIHOST_RUN_TIMEOUT - time.perf_counter()
+                out, _ = p.communicate(timeout=max(1.0, left))
+                outs.append(out.decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
     wall = time.perf_counter() - t0
     records = []
     for r, (p, out) in enumerate(zip(procs, outs)):
@@ -2923,7 +2943,7 @@ def multihost_phase(label, n_ranks, backend):
                     if line.startswith("MULTIHOST {")]
     launches = dict.fromkeys(MULTIHOST_KERNELS.values(), 0)
     for name, kernel in MULTIHOST_KERNELS.items():
-        recs = sorted((rec for rec in records if rec["frontend"] == name),
+        recs = sorted((rec for rec in records if rec.get("frontend") == name),
                       key=lambda rec: rec["rank"])
         if len(recs) != n_ranks:
             raise AssertionError("{} {}: {} ranks reported".format(label, name, len(recs)))
@@ -2948,8 +2968,59 @@ def multihost_phase(label, n_ranks, backend):
                   ", ".join("{} / {}".format(rec["sent"], rec["received"]) for rec in recs),
                   n_ranks, ", ".join("{:.4f}".format(statistics.median(rec["walls_s"]["mesh"]))
                                      for rec in recs), solo, twin))
+    for name, halo in multihost_halos().items():
+        recs = sorted((rec for rec in records if rec.get("routine") == name),
+                      key=lambda rec: rec["rank"])
+        if len(recs) != n_ranks:
+            raise AssertionError("{} {}: {} ranks reported".format(label, name, len(recs)))
+        for rec in recs:
+            r = rec["rank"]
+            if halo is not None:
+                left, right, row_bytes = halo
+                # rank r's block end is rank r + 1's left halo, its start
+                # rank r - 1's right halo
+                own = ((left if r < n_ranks - 1 else 0) + (right if r > 0 else 0),
+                       (right if r < n_ranks - 1 else 0) + (left if r > 0 else 0))
+                if tuple(rec["bytes"][:2]) != tuple(n * row_bytes for n in own):
+                    raise AssertionError("{} {} rank {}: halo bytes {}, this script counts "
+                                         "{}".format(label, name, r, rec["bytes"][:2],
+                                                     [n * row_bytes for n in own]))
+            if rec["bytes"] != rec["predicted"] or not rec["max_diff"] <= rec["tol"]:
+                raise AssertionError("{} {} rank {}: bytes {}, predicted {}, diff {}".format(
+                    label, name, r, rec["bytes"], rec["predicted"], rec["max_diff"]))
+        solo, twin = (statistics.median(recs[0]["walls_s"][k])
+                      for k in ("unsharded", "one-process mesh"))
+        print("{} {} over {} ranks ({}): max diff to the unsharded function {} (bar {}){}; "
+              "bytes sent / received per rank in the routine {}, in the gather {} (each equal "
+              "to its predicted count); wall median over {} ranks {} s against rank 0 alone "
+              "unsharded {:.4f} s and on a one-process mesh {:.4f} s".format(
+                  label, name, n_ranks, backend,
+                  ", ".join("{:.3e}".format(rec["max_diff"]) for rec in recs), recs[0]["tol"],
+                  "" if recs[0]["steps"] is None else "; {} steps".format(
+                      [rec["steps"] for rec in recs]),
+                  ", ".join("{} / {}".format(*rec["bytes"][:2]) for rec in recs),
+                  ", ".join("{} / {}".format(*rec["bytes"][2:]) for rec in recs),
+                  n_ranks, ", ".join("{:.4f}".format(statistics.median(rec["walls_s"]["mesh"]))
+                                     for rec in recs), solo, twin))
     print("{}: {} ranks over {}, {:.1f} s with their start".format(label, n_ranks, backend, wall))
     return launches
+
+
+def multihost_halos():
+    """Phase 19's sharded routines, each with its halo (left samples,
+    right samples, bytes a sample row) at phase 18d's shapes, or None."""
+    from syncopy_tpu_torch.ops import filtering as fb
+    from syncopy_tpu_torch.ops import wavelet as pw
+
+    row = N_CHANNELS * 4
+    fir = (len(fb.design_wsinc("hamming", 400, np.array([8.0, 12.0]) / FS, "bp")) - 1) // 2
+    cwt = int(np.ceil(5.0 * pw.Morlet(6).scale_from_period(1.0 / MESH_CWT_FREQS).max()
+                      / (1.0 / FS))) + 1
+    half = MESH_STFT_NPERSEG // 2
+    return {"apply_fir_time_sharded": (fir, fir, row),
+            "mtmconvol_time_sharded": (half, MESH_STFT_NPERSEG - half, row),
+            "cwt_time_sharded": (cwt, cwt, row),
+            "wilson_sf_sharded": None, "granger_sharded": None}
 
 
 def chunk_trials_for_bp():
@@ -3031,7 +3102,9 @@ def main():
         cards_phase(spt, adata, coh_ref)
         del data, adata
         clear_store()
-        multihost_phase("19e", torch.cuda.device_count(), "nccl")
+        # phase 8's 64-channel network, its CSD in float64 rounded to complex64
+        csd = granger_csd_f64(ar2_network(N_CHANNELS), N_CHANNELS).cpu().numpy()
+        multihost_phase("19e", torch.cuda.device_count(), "nccl", csd)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
         return 0
@@ -3290,9 +3363,11 @@ def main():
     # -- 19. multi-host: two ranks on the card, and one rank per card ------ #
     t0 = time.perf_counter()
     clear_store()
-    multihost = multihost_phase("19", 2, "gloo")
+    csd = granger[N_CHANNELS]["csd"].astype(np.complex128)
+    multihost = multihost_phase("19", 2, "gloo", csd)
     if torch.cuda.device_count() > 1:
-        for kernel, count in multihost_phase("19e", torch.cuda.device_count(), "nccl").items():
+        for kernel, count in multihost_phase("19e", torch.cuda.device_count(), "nccl",
+                                             csd).items():
             multihost[kernel] += count
     else:
         print("19e one rank per card over nccl: not run: one card")

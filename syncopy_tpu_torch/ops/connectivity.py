@@ -22,9 +22,9 @@
 # (_ccov_lags_gemm) was shaped for the TPU's matrix unit and waits for a
 # measurement on the card. wilson_sf_sharded and granger_sharded split
 # Wilson's per-frequency work over the positions of a mesh axis and its
-# lag-domain FFTs over channel rows, swapping the two layouts by copies
-# between positions (the all-to-all that GSPMD inserts in the JAX
-# package).
+# lag-domain FFTs over channel rows, swapping the two layouts between
+# positions (the all-to-all that GSPMD inserts in the JAX package), by
+# copies in one process and by point-to-point messages across processes.
 
 import numpy as np
 import torch
@@ -481,11 +481,23 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     device): the per-frequency inverse, Cholesky and matrix products run
     on blocks of ``ceil(F / n)`` frequencies (the last ones shorter, as
     GSPMD pads an uneven axis), the plus operator's FFTs along frequency
-    on blocks of channel rows; each step swaps the two layouts by copies
-    between positions. The setup (Hermitizing, scaling, the zero-lag
-    Cholesky start) and the final assembly run on the axis's first
-    position. The same iteration and exits as :func:`wilson_sf`, in the
-    CSD's own precision.
+    on blocks of channel rows; each step swaps the two layouts
+    (:func:`~syncopy_tpu_torch.parallel.mesh.exchange`). The setup
+    (Hermitizing, scaling, the zero-lag Cholesky start), the zero-lag
+    update and the final inverse run on the axis's first position. The
+    same iteration and exits as :func:`wilson_sf`, in the CSD's own
+    precision.
+
+    On a mesh that spans processes every rank of the mesh calls this with
+    the same CSD. The rank of the axis's first position runs the setup and
+    sends each position's frequency block to its owner; a rank computes
+    only its own positions' blocks; the layout swaps, the zero-lag rows to
+    the first position and its correction back are point-to-point
+    messages, and every rank receives each block's error and takes their
+    maximum (exact, so every rank takes the same number of steps). Every
+    rank, one that owns no position of the axis too, returns the whole
+    result on its ``mesh.home_device()``, bit for bit equal across ranks
+    and to a one-process mesh of the same shape.
 
     Parameters
     ----------
@@ -497,10 +509,10 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     Returns
     -------
     ``(Hfunc (F, N, N), Sigma (N, N), converged, err, n_iter)`` on the
-    axis's first position, as :func:`wilson_sf` returns them.
+    mesh's home device, as :func:`wilson_sf` returns them.
     """
-    from ..parallel.mesh import (active_mesh, axis_devices, check_mesh, check_one_process,
-                                 device_context, split_along)
+    from ..parallel.mesh import (Move, active_mesh, axis_devices, axis_ranks, check_mesh,
+                                 device_context, exchange, process_rank, replicate, split_sizes)
 
     if mesh is None:
         mesh = active_mesh()
@@ -508,42 +520,70 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
             raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
     if axis_name is None:
         axis_name = mesh.axis_names[0]
-    devices = axis_devices(check_one_process(check_mesh(mesh), "wilson_sf_sharded"), axis_name)
-    home = devices[0]
-    CSD = torch.as_tensor(CSD).to(home)
+    devices = axis_devices(check_mesh(mesh), axis_name)
+    ranks, me = axis_ranks(mesh, axis_name), process_rank()
+    home, home_rank, out_dev = devices[0], ranks[0], mesh.home_device()
+    CSD = torch.as_tensor(CSD)
     F, N = CSD.shape[0], CSD.shape[-1]
     cdtype, rdtype = CSD.dtype, _real_dtype(CSD.dtype)
     M = 2 * F - 2
 
-    with device_context(home):
-        CSD = (CSD + CSD.mH) / 2
-        scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean()
-        CSD = CSD / scale
-        diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (F,)
-        valid_bin = diag_power > 1e-9 * diag_power.amax()
-        gamma0 = CSD.sum(dim=0) + CSD[1 : F - 1].conj().sum(dim=0)
-        gamma0 = ((gamma0 + gamma0.mH) / 2).real
-        psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (N, N)
+    valid_bin = psi0 = scale = None
+    if me != home_rank:
+        CSD = None  # the first position's rank sends each block
+    else:
+        with device_context(home):
+            CSD = CSD.to(home)
+            CSD = (CSD + CSD.mH) / 2
+            scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean()
+            CSD = CSD / scale
+            diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (F,)
+            valid_bin = diag_power > 1e-9 * diag_power.amax()
+            gamma0 = CSD.sum(dim=0) + CSD[1 : F - 1].conj().sum(dim=0)
+            gamma0 = ((gamma0 + gamma0.mH) / 2).real
+            psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (N, N)
 
-    # the frequency layout: (F_p, N, N) blocks; the row layout: (F, R_q, N)
-    freq = [(c, v, d) for c, v, d in zip(split_along(CSD, devices), split_along(valid_bin, devices),
-                                         devices) if c.shape[0]]
-    f_sizes = [c.shape[0] for c, _, _ in freq]
-    f_bounds = np.concatenate([[0], np.cumsum(f_sizes)])
-    r_step = -(-N // len(devices))
-    rows = [(q * r_step, min((q + 1) * r_step, N), d) for q, d in enumerate(devices)
-            if q * r_step < N]
-    eyes, U, absCSD, psi = [], [], [], []
-    for c, _, d in freq:
-        with device_context(d):
-            eyes.append(torch.eye(N, dtype=cdtype, device=d))
-            U.append(_cholesky_nan(c))
-            absCSD.append(c.abs())
-            psi.append(psi0.to(d).expand(c.shape[0], -1, -1).clone())
+    # the frequency layout: (F_p, N, N) blocks on positions `freq`; the row
+    # layout: (F, R_q, N) blocks on positions `rows`
+    f_sizes, r_sizes = split_sizes(F, len(devices)), split_sizes(N, len(devices))
+    f_bounds, r_bounds = np.cumsum([0] + f_sizes), np.cumsum([0] + r_sizes)
+    freq = [p for p in range(len(devices)) if f_sizes[p]]
+    rows = [q for q in range(len(devices)) if r_sizes[q]]
+    mine = [p for p in freq if ranks[p] == me]
 
-    inf = torch.full((), float("inf"), dtype=rdtype, device=home)
+    def from_home(tensor):
+        """An (N, N) `tensor` of the first position sent to every
+        frequency block's."""
+        return [Move(tensor, home_rank, ranks[p], devices[p], (N, N), cdtype) for p in freq]
+
+    def cut(t, p):
+        return None if t is None else t.narrow(0, int(f_bounds[p]), f_sizes[p])
+
+    def everywhere(items, dtype):
+        """`items` of ``(tensor, owner rank, shape)`` on every rank of the
+        mesh, on its ``out_dev``."""
+        return replicate(items, mesh.processes, out_dev, dtype)
+
+    setup = exchange(
+        [Move(cut(CSD, p), home_rank, ranks[p], devices[p], (f_sizes[p], N, N), cdtype)
+         for p in freq]
+        + [Move(cut(valid_bin, p), home_rank, ranks[p], devices[p], (f_sizes[p],), torch.bool)
+           for p in freq]
+        + from_home(psi0))
+    blocks, eyes, U, absCSD, psi = {}, {}, {}, {}, {}
+    for k, p in enumerate(freq):
+        if p in mine:
+            c, v, start = setup[k], setup[len(freq) + k], setup[2 * len(freq) + k]
+            with device_context(devices[p]):
+                blocks[p] = (c, v)
+                eyes[p] = torch.eye(N, dtype=cdtype, device=devices[p])
+                U[p] = _cholesky_nan(c)
+                absCSD[p] = c.abs()
+                psi[p] = start.expand(c.shape[0], -1, -1).clone()
+
+    inf = torch.full((), float("inf"), dtype=rdtype, device=out_dev)
     err, prev_err, best_err = inf, inf, inf
-    it = torch.zeros((), dtype=torch.int64, device=home)
+    it = torch.zeros((), dtype=torch.int64, device=out_dev)
 
     def running(err, prev_err, best_err, it):
         plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
@@ -551,44 +591,67 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
         return (err >= rtol) & (it < nIter) & ~(plateau | blown)
 
     while bool(running(err, prev_err, best_err, it)):
-        gI = []
-        for p, (_, _, d) in enumerate(freq):
-            with device_context(d):
+        gI = {}
+        for p in mine:
+            with device_context(devices[p]):
                 g = _inv_nan(psi[p]) @ U[p]
-                gI.append(g @ g.mH + eyes[p])
+                gI[p] = g @ g.mH + eyes[p]
         # frequency -> row layout, the plus operator along frequency
-        gplus_r, g0_r = [], []
-        for r0, r1, d in rows:
-            with device_context(d):
-                block = torch.cat([b[:, r0:r1].to(d) for b in gI], dim=0)  # (F, R, N)
-                gp, g0 = _plus_operator_onesided(block[None], M)
-                gplus_r.append(gp[0])
-                g0_r.append(g0[0].to(home))
-        with device_context(home):
-            g0 = torch.cat(g0_r, dim=0)  # (N, N)
-            S = torch.triu(g0)
-            S = S - S.mH
-            psi0_new = psi0 @ (g0 + S)
+        pieces = iter(exchange([
+            Move(gI[p][:, r_bounds[q] : r_bounds[q + 1]] if p in gI else None, ranks[p],
+                 ranks[q], devices[q], (f_sizes[p], r_sizes[q], N), cdtype)
+            for q in rows for p in freq]))
+        gplus_r, g0_r = {}, {}
+        for q in rows:
+            parts = [next(pieces) for _ in freq]
+            if ranks[q] == me:
+                with device_context(devices[q]):
+                    gp, g0 = _plus_operator_onesided(torch.cat(parts, dim=0)[None], M)
+                    gplus_r[q], g0_r[q] = gp[0], g0[0]
+        g0_rows = exchange([Move(g0_r.get(q), ranks[q], home_rank, home, (r_sizes[q], N), cdtype)
+                            for q in rows])
+        S = None
+        if me == home_rank:
+            with device_context(home):
+                g0 = torch.cat(g0_rows, dim=0)  # (N, N)
+                S = torch.triu(g0)
+                S = S - S.mH
+                psi0 = psi0 @ (g0 + S)
+        S_at = exchange(from_home(S))
         # row -> frequency layout, the step and its error per block
-        psi_new, errs = [], []
-        for p, (c, v, d) in enumerate(freq):
-            with device_context(d):
-                f0, f1 = int(f_bounds[p]), int(f_bounds[p + 1])
-                gplus = torch.cat([b[f0:f1].to(d) for b in gplus_r], dim=1)  # (F_p, N, N)
-                pn = psi[p] @ (gplus + S.to(d))
-                rel = (c - pn @ pn.mH).abs() / absCSD[p]
-                psi_new.append(pn)
-                errs.append(torch.where(v[:, None, None], rel, 0.0).amax().to(home))
-        new_err = torch.stack(errs).amax()
-        psi, psi0 = psi_new, psi0_new
+        pieces = iter(exchange([
+            Move(cut(gplus_r.get(q), p), ranks[q], ranks[p], devices[p],
+                 (f_sizes[p], r_sizes[q], N), cdtype)
+            for p in freq for q in rows]))
+        errs = {}
+        for k, p in enumerate(freq):
+            parts = [next(pieces) for _ in rows]
+            if p in mine:
+                c, v = blocks[p]
+                with device_context(devices[p]):
+                    psi[p] = psi[p] @ (torch.cat(parts, dim=1) + S_at[k])
+                    rel = (c - psi[p] @ psi[p].mH).abs() / absCSD[p]
+                    errs[p] = torch.where(v[:, None, None], rel, 0.0).amax()
+        new_err = torch.stack(everywhere([(errs.get(p), ranks[p], ()) for p in freq],
+                                         rdtype)).amax()
         prev_err, err = err, new_err
         best_err = torch.minimum(best_err, new_err)
         it = it + 1
 
-    with device_context(home):
-        Sigma = (psi0 @ psi0.mT) * scale
-        inv0 = _inv_nan(psi0)
-        Hfunc = torch.cat([(b @ inv0.to(b.device)).to(home) for b in psi], dim=0)
+    Sigma = inv0 = None
+    if me == home_rank:
+        with device_context(home):
+            Sigma = (psi0 @ psi0.mT) * scale
+            inv0 = _inv_nan(psi0)
+    inv_at = exchange(from_home(inv0))
+    Hfunc = {}
+    for k, p in enumerate(freq):
+        if p in mine:
+            with device_context(devices[p]):
+                Hfunc[p] = psi[p] @ inv_at[k]
+    Hfunc = torch.cat(everywhere([(Hfunc.get(p), ranks[p], (f_sizes[p], N, N)) for p in freq],
+                                 cdtype), dim=0)
+    Sigma = everywhere([(Sigma, home_rank, (N, N))], cdtype)[0]
     return Hfunc, Sigma, err < rtol, err, it
 
 
@@ -597,33 +660,47 @@ def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_m
     Granger-Geweke causality from one trial-averaged ``(F, N, N)`` CSD too
     wide for one device (syncopy_tpu/ops/connectivity.py::
     granger_sharded): :func:`regularize_csd` on the mesh axis's first
-    position, :func:`wilson_sf_sharded`, then :func:`granger`, in
-    complex128 (the port's Granger precision).
+    position, :func:`wilson_sf_sharded`, then :func:`granger` there, in
+    complex128 (the port's Granger precision). On a mesh that spans
+    processes every rank of the mesh calls this with the same CSD, and the
+    rank of the axis's first position sends G and the regularization's
+    factor and condition number to the others, so that every rank returns
+    the same bits.
 
-    Returns ``(G (F, N, N) float64, info)``, `info` holding the frontend's
-    ``out.info`` diagnostics.
+    Returns ``(G (F, N, N) float64, info)`` on the mesh's home device,
+    `info` holding the frontend's ``out.info`` diagnostics.
     """
-    from ..parallel.mesh import (active_mesh, axis_devices, check_mesh, check_one_process,
-                                 device_context)
+    from ..parallel.mesh import (active_mesh, axis_devices, axis_ranks, check_mesh,
+                                 device_context, process_rank, replicate)
 
     if mesh is None:
         mesh = active_mesh()
         if mesh is None:
             raise ValueError("no mesh given and no active mesh: use spt.use_mesh")
-    home = axis_devices(check_one_process(check_mesh(mesh), "granger_sharded"),
-                        axis_name or mesh.axis_names[0])[0]
-    with device_context(home):
-        CSD = torch.as_tensor(CSD).to(home, torch.complex128)
-        CSDreg, factor, ini_cn = regularize_csd(CSD, cond_max=cond_max, eps_max=1e-1)
-    H, Sigma, conv, err, _ = wilson_sf_sharded(CSDreg, mesh=mesh, axis_name=axis_name,
-                                               nIter=nIter, rtol=rtol)
-    with device_context(home):
-        G = granger(CSDreg, H, Sigma)
+    axis_name = axis_name or mesh.axis_names[0]
+    home = axis_devices(check_mesh(mesh), axis_name)[0]
+    home_rank = axis_ranks(mesh, axis_name)[0]
+    CSD = torch.as_tensor(CSD)
+    G = reg = None
+    if process_rank() == home_rank:
+        with device_context(home):
+            CSD = CSD.to(home, torch.complex128)
+            CSD, factor, ini_cn = regularize_csd(CSD, cond_max=cond_max, eps_max=1e-1)
+            reg = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=home)
+                               for v in (factor, ini_cn)])
+    H, Sigma, conv, err, _ = wilson_sf_sharded(CSD.to(torch.complex128), mesh=mesh,
+                                               axis_name=axis_name, nIter=nIter, rtol=rtol)
+    if process_rank() == home_rank:
+        with device_context(home):
+            G = granger(CSD, H, Sigma)
+    F, N = CSD.shape[0], CSD.shape[-1]
+    G, reg = replicate([(G, home_rank, (F, N, N)), (reg, home_rank, (2,))], mesh.processes,
+                       mesh.home_device(), torch.float64)
     info = {
         "converged": bool(conv),
         "max rel. err": float(err),
-        "reg. factor": float(factor),
-        "initial cond. num": float(ini_cn),
+        "reg. factor": float(reg[0]),
+        "initial cond. num": float(reg[1]),
     }
     return G, info
 

@@ -15,7 +15,7 @@
 # (_prefer_filter_gemm, _fir_conv_matrix, _hilbert_matrix,
 # filter_gemm_fingerprint, SPY_TPU_FILTER_GEMM) and MXU rewrites.
 # apply_fir_time_sharded splits one recording's time axis over a mesh
-# axis, with the filter halo copied between neighbouring positions.
+# axis, with the filter halo exchanged between neighbouring positions.
 
 import functools
 
@@ -140,7 +140,10 @@ def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
     long for one device): each position receives a filter halo of ``(K -
     1) // 2`` samples from each neighbour (zeros at the recording's
     edges), convolves its extended block with :func:`apply_fir` on its
-    own device and crops it; the full signal is never gathered.
+    own device and crops it; the full signal is never gathered. On a mesh
+    that spans processes every rank calls this with the same arguments,
+    uploads and filters only its own positions' blocks, and halos between
+    ranks travel as point-to-point messages.
 
     Parameters
     ----------
@@ -153,15 +156,15 @@ def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
     -------
     y : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor`, float32
         (nSamples / n, nChannels) blocks along dim 0, one per position
+        (None for another rank's)
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+    from ..parallel.mesh import (ShardedTensor, axis_devices, axis_ranks, check_mesh,
                                  device_context, halo_exchange, split_along)
 
     K = len(fkernel)
     if K % 2 == 0:
         raise ValueError("apply_fir_time_sharded requires an odd-length kernel")
-    devices = axis_devices(check_one_process(check_mesh(mesh), "apply_fir_time_sharded"),
-                           axis_name)
+    devices, ranks = axis_devices(check_mesh(mesh), axis_name), axis_ranks(mesh, axis_name)
     T = x.shape[0]
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")
@@ -169,12 +172,15 @@ def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
     if halo > T // len(devices):
         raise ValueError(
             "filter halo ({} samples) exceeds the local shard ({})".format(halo, T // len(devices)))
-    blocks = split_along(torch.as_tensor(x).to(torch.float32), devices)
+    blocks = split_along(torch.as_tensor(x).to(torch.float32), devices, ranks=ranks)
     out = []
-    for ext, d in zip(halo_exchange(blocks, halo, halo), devices):
+    for ext, d in zip(halo_exchange(blocks, halo, halo, ranks), devices):
+        if ext is None:
+            out.append(None)
+            continue
         with device_context(d):
             out.append(apply_fir(ext[None], fkernel)[0, halo : halo + T // len(devices)])
-    return ShardedTensor(out, dim=0)
+    return ShardedTensor(out, dim=0, shape=tuple(x.shape), ranks=ranks)
 
 
 # ------------------------------------------------------------------------ #

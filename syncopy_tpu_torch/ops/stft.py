@@ -9,7 +9,7 @@
 # differ from trial to trial. The frames keep their samples on the last
 # axis, so the batched rfft runs over contiguous rows.
 # mtmconvol_time_sharded splits one recording's time axis over a mesh
-# axis, with the window halo copied between neighbouring positions.
+# axis, with the window halo exchanged between neighbouring positions.
 
 import torch
 
@@ -97,7 +97,9 @@ def mtmconvol_time_sharded(data, tapers, nperseg, mesh, axis_name="trial", polyr
     ``nperseg - nperseg // 2`` from its right one (zeros at the
     recording's edges), frames and transforms its own window centres, and
     its spectrogram stays on its device. Equal to :func:`mtmconvol` with
-    centres ``0 .. nSamples - 1`` up to FFT rounding.
+    centres ``0 .. nSamples - 1`` up to FFT rounding. On a mesh that spans
+    processes every rank calls this with the same arguments and frames
+    only its own positions' blocks.
 
     Parameters
     ----------
@@ -110,13 +112,13 @@ def mtmconvol_time_sharded(data, tapers, nperseg, mesh, axis_name="trial", polyr
     -------
     spec : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor` of
         (nSamples / n, nTaper|1, nFreq, nChannels) blocks along dim 0
+        (None for another rank's)
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+    from ..parallel.mesh import (ShardedTensor, axis_devices, axis_ranks, check_mesh,
                                  device_context, halo_exchange, split_along)
 
-    devices = axis_devices(check_one_process(check_mesh(mesh), "mtmconvol_time_sharded"),
-                           axis_name)
-    T = data.shape[0]
+    devices, ranks = axis_devices(check_mesh(mesh), axis_name), axis_ranks(mesh, axis_name)
+    T, C = data.shape
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")
     T_local = T // len(devices)
@@ -124,14 +126,19 @@ def mtmconvol_time_sharded(data, tapers, nperseg, mesh, axis_name="trial", polyr
         raise ValueError(
             "local shard ({} samples) shorter than nperseg ({})".format(T_local, nperseg))
     half = nperseg // 2
-    blocks = split_along(torch.as_tensor(data).to(torch.float32), devices)
+    blocks = split_along(torch.as_tensor(data).to(torch.float32), devices, ranks=ranks)
     tapers = torch.as_tensor(tapers)
     out = []
-    for ext, d in zip(halo_exchange(blocks, half, nperseg - half), devices):
+    for ext, d in zip(halo_exchange(blocks, half, nperseg - half, ranks), devices):
+        if ext is None:
+            out.append(None)
+            continue
         with device_context(d):
             # local centre c frames ext[c : c + nperseg], as mtmconvol's
             # zero-padded gather frames the whole recording
             frames = ext.transpose(0, 1).unfold(1, nperseg, 1)[:, :T_local].transpose(0, 1)
             out.append(_frames_spectra(frames[None], tapers, nperseg, polyremoval, output,
                                        keeptapers, freq_idx)[0])
-    return ShardedTensor(out, dim=0)
+    n_freq = nperseg // 2 + 1 if freq_idx is None else len(freq_idx)
+    shape = (T, tapers.shape[0] if keeptapers else 1, n_freq, C)
+    return ShardedTensor(out, dim=0, shape=shape, ranks=ranks)

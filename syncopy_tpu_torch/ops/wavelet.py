@@ -351,7 +351,9 @@ def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
     the wavelets' half support, from each neighbour (zeros at the
     recording's edges), runs :func:`cwt` on its extended block and crops
     it; its transform stays on its device. Equal to :func:`cwt` on the
-    whole recording up to FFT rounding.
+    whole recording up to FFT rounding. On a mesh that spans processes
+    every rank calls this with the same arguments and transforms only its
+    own positions' blocks.
 
     Parameters
     ----------
@@ -364,12 +366,13 @@ def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
     -------
     spec : :class:`~syncopy_tpu_torch.parallel.mesh.ShardedTensor` of
         (nScales, nSamples / n, nChannels) complex64 blocks along dim 1
+        (None for another rank's)
     """
-    from ..parallel.mesh import (ShardedTensor, axis_devices, check_mesh, check_one_process,
+    from ..parallel.mesh import (ShardedTensor, axis_devices, axis_ranks, check_mesh,
                                  device_context, halo_exchange, split_along)
 
-    devices = axis_devices(check_one_process(check_mesh(mesh), "cwt_time_sharded"), axis_name)
-    T = data.shape[0]
+    devices, ranks = axis_devices(check_mesh(mesh), axis_name), axis_ranks(mesh, axis_name)
+    T, C = data.shape
     if T % len(devices):
         raise ValueError("nSamples must be divisible by the mesh axis size")
     T_local = T // len(devices)
@@ -378,12 +381,15 @@ def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
         raise ValueError(
             "wavelet halo ({} samples) exceeds the local shard ({}); use "
             "fewer devices or smaller scales".format(halo, T_local))
-    blocks = split_along(torch.as_tensor(data).to(torch.float32), devices)
+    blocks = split_along(torch.as_tensor(data).to(torch.float32), devices, ranks=ranks)
     out = []
-    for ext, d in zip(halo_exchange(blocks, halo, halo), devices):
+    for ext, d in zip(halo_exchange(blocks, halo, halo, ranks), devices):
+        if ext is None:
+            out.append(None)
+            continue
         with device_context(d):
             out.append(cwt(ext, wavelet, scales, dt)[:, halo : halo + T_local])
-    return ShardedTensor(out, dim=1)
+    return ShardedTensor(out, dim=1, shape=(len(np.atleast_1d(scales)), T, C), ranks=ranks)
 
 
 def superlet_weights(scales, order_max, order_min=1, adaptive=False):

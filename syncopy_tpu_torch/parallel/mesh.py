@@ -23,8 +23,11 @@
 # on the same data; a rank computes only the trial shards it owns, and
 # each shard's result reaches the other ranks by a broadcast from its
 # owner (share_from), so every rank ends the call holding the whole,
-# identical result. The sharded routines stay within one process
-# (CROSS_PROCESS_ITEM).
+# identical result. The sharded routines move their blocks between
+# positions through exchange: a copy between two positions of one rank,
+# point-to-point sends between ranks (halos, Wilson's layout swaps); a
+# ShardedTensor holds this rank's blocks, and its gather hands every rank
+# the whole array.
 
 import contextlib
 import datetime
@@ -34,7 +37,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from ..shared.errors import SPYParallelError, SPYValueError, SPYWarning, not_ported
+from ..shared.errors import SPYParallelError, SPYValueError, SPYWarning
 from ..shared.log import get_logger
 
 __all__ = [
@@ -51,26 +54,26 @@ __all__ = [
     "shard_batch",
     "gather_shards",
     "axis_devices",
+    "axis_ranks",
     "device_context",
     "ShardedTensor",
     "split_along",
     "halo_exchange",
+    "Move",
+    "exchange",
+    "replicate",
     "init_distributed",
     "process_rank",
     "process_count",
     "share_from",
     "collective_counts",
     "reset_collective_counts",
-    "check_one_process",
     "cluster_cleanup",
     "esi_cluster_setup",
 ]
 
 TRIAL_AXIS = "trial"
 CHANNEL_AXIS = "channel"
-
-#: where the sharded routines on a mesh that spans processes are queued
-CROSS_PROCESS_ITEM = "ROADMAP Queue 1 item 19 (the sharded routines across processes)"
 
 #: seconds a rank waits for its peers, to join and in each collective,
 #: before it raises
@@ -83,8 +86,9 @@ _ACTIVE_MESH = None
 #: through; None on a single host
 _CLUSTER = None
 
-#: tensor bytes moved by share_from since reset_collective_counts():
-#: "sent" counts a broadcast once for each receiving rank
+#: tensor bytes moved between ranks by share_from and exchange since
+#: reset_collective_counts(): "sent" counts a broadcast once for each
+#: receiving rank
 _COLLECTIVE_BYTES = {"sent": 0, "received": 0}
 
 
@@ -122,6 +126,12 @@ class Mesh:
         """True when a position belongs to another process than this one:
         shard results then travel between ranks (:func:`share_from`)."""
         return bool((self.ranks != process_rank()).any())
+
+    @property
+    def processes(self):
+        """The ranks that own positions of the mesh, in order: those that
+        call a sharded routine on it and receive its result."""
+        return sorted(set(int(r) for r in self.ranks.flat))
 
     def home_device(self):
         """Where this process combines the shards' results: its first
@@ -316,8 +326,9 @@ def share_from(tensor, src, device, info=None):
 
 
 def collective_counts():
-    """The tensor bytes :func:`share_from` sent and received since the
-    last :func:`reset_collective_counts`."""
+    """The tensor bytes this rank sent to and received from other ranks
+    (:func:`share_from`, :func:`exchange`) since
+    the last :func:`reset_collective_counts`."""
     return dict(_COLLECTIVE_BYTES)
 
 
@@ -411,15 +422,6 @@ def check_mesh(mesh):
             raise SPYValueError(
                 legal="a CUDA index below the {} visible cards".format(torch.cuda.device_count()),
                 varname="mesh", actual=str(d))
-    return mesh
-
-
-def check_one_process(mesh, what):
-    """Raise ``not_ported`` naming :data:`CROSS_PROCESS_ITEM` where `mesh`
-    has positions of another process: the sharded routines exchange
-    their blocks within one process only."""
-    if mesh.crosses_processes:
-        raise not_ported("{} on a mesh that spans processes".format(what), CROSS_PROCESS_ITEM)
     return mesh
 
 
@@ -548,6 +550,16 @@ def axis_devices(mesh, axis_name=TRIAL_AXIS):
     raise SPYValueError(legal="'trial' or 'channel'", varname="axis_name", actual=str(axis_name))
 
 
+def axis_ranks(mesh, axis_name=TRIAL_AXIS):
+    """The owner rank of each position of :func:`axis_devices` (all
+    :func:`process_rank` where this process owns the whole mesh)."""
+    if axis_name == TRIAL_AXIS:
+        return [int(r) for r in mesh.ranks[:, 0]]
+    if axis_name == CHANNEL_AXIS:
+        return [int(r) for r in mesh.ranks[0, :]]
+    raise SPYValueError(legal="'trial' or 'channel'", varname="axis_name", actual=str(axis_name))
+
+
 def shard_batch(host_batch, mesh, channel_axis_pos=None):
     """
     Transfer a host batch (numpy, leading axis = trials) to the device(s).
@@ -598,51 +610,170 @@ def gather_shards(shards, device, dim=0):
 
 class ShardedTensor(list):
     """One array held as tensors, one per mesh position along an axis,
-    split along dimension `dim` (a sharded routine's output, which is
-    never gathered unless asked: :meth:`gather`)."""
+    split along dimension `dim` into :func:`split_sizes` blocks of the
+    whole array's `shape` (a sharded routine's output, which is never
+    gathered unless asked: :meth:`gather`). `ranks` names each block's
+    owner (:func:`axis_ranks`); a block of another rank is None here."""
 
-    def __init__(self, tensors, dim):
+    def __init__(self, tensors, dim, shape, ranks):
         super().__init__(tensors)
         self.dim = int(dim)
+        self.ranks = list(ranks)
+        self._shape = tuple(shape)
 
     @property
     def shape(self):
-        shape = list(self[0].shape)
-        shape[self.dim] = sum(t.shape[self.dim] for t in self)
-        return tuple(shape)
+        return self._shape
 
     def gather(self, device="cpu"):
-        """The whole array, concatenated on `device`."""
-        return gather_shards(list(self), device, dim=self.dim)
+        """The whole array, concatenated on `device`, on every rank that
+        owns a block (:func:`replicate`): a copy of each block where all
+        are this rank's, else a collective that each owner calls, and every
+        one of them gets the same bits."""
+        sizes = split_sizes(self._shape[self.dim], len(self))
+        dtype = next(t.dtype for t in self if t is not None)
+        items = [(t, r, self._shape[: self.dim] + (n,) + self._shape[self.dim + 1 :])
+                 for t, r, n in zip(self, self.ranks, sizes)]
+        return torch.cat(replicate(items, sorted(set(self.ranks)), device, dtype), dim=self.dim)
 
 
-def split_along(x, devices, dim=0):
+def split_sizes(n, k):
+    """The lengths of :func:`split_along`'s `k` blocks of `n`:
+    ``ceil(n / k)`` each, the last ones shorter or empty."""
+    step = -(-n // k)
+    return [max(0, min(step, n - i * step)) for i in range(k)]
+
+
+def split_along(x, devices, dim=0, ranks=None):
     """`x` (a numpy array or tensor) split along `dim` into
-    ``len(devices)`` contiguous blocks of ``ceil(n / len(devices))``, the
-    last ones shorter or empty, as GSPMD pads an uneven axis; block ``i``
-    on ``devices[i]``."""
+    ``len(devices)`` contiguous blocks of :func:`split_sizes`, as GSPMD
+    pads an uneven axis; block ``i`` on ``devices[i]``. Only the blocks of
+    positions this rank owns (`ranks`, :func:`axis_ranks`; default: all)
+    are made, the others' are None."""
     x = torch.as_tensor(x)
-    n = x.shape[dim]
-    step = -(-n // len(devices))
-    return [x.narrow(dim, min(i * step, n), max(0, min(step, n - i * step))).to(d)
-            for i, d in enumerate(devices)]
+    me = process_rank()
+    ranks = [me] * len(devices) if ranks is None else ranks
+    out, start = [], 0
+    for d, r, size in zip(devices, ranks, split_sizes(x.shape[dim], len(devices))):
+        out.append(x.narrow(dim, start, size).to(d) if r == me else None)
+        start += size
+    return out
 
 
-def halo_exchange(blocks, left, right):
+def halo_exchange(blocks, left, right, ranks=None):
     """
     Each block of a signal split along axis 0 (one per position, in
     order) extended by `left` samples from its left neighbour's end and
     `right` samples from its right neighbour's start, zeros at the outer
-    edges: the ring exchange of the JAX package's ``lax.ppermute`` pair,
-    as copies between positions. Each neighbour must hold at least the
-    samples it sends. Returns the extended blocks, each on its own
-    block's device.
+    edges: the ring exchange of the JAX package's ``lax.ppermute`` pair.
+    `ranks` names each block's owner (:func:`axis_ranks`; default: this
+    rank owns all); this rank's blocks are tensors, the others' None. A
+    halo between two positions of this rank is a copy, one from or to
+    another rank a point-to-point message (:func:`exchange`); every rank
+    calls this with the same `ranks`. Each neighbour must hold at least
+    the samples it sends, and the blocks of a signal are equally long.
+    Returns the extended blocks, each on its own block's device (None for
+    another rank's).
     """
+    me = process_rank()
+    ranks = [me] * len(blocks) if ranks is None else list(ranks)
+    own = [b for b in blocks if b is not None]
+    rest, dtype = (tuple(own[0].shape[1:]), own[0].dtype) if own else ((), None)
+    pairs = [(i, j, n) for i in range(len(blocks)) for j, n in ((i - 1, left), (i + 1, right))
+             if 0 <= j < len(blocks) and n]
+    moves = []
+    for i, j, n in pairs:
+        src = blocks[j]
+        halo = None if src is None else src[src.shape[0] - n :] if j < i else src[:n]
+        moves.append(Move(halo, ranks[j], ranks[i], None if blocks[i] is None else blocks[i].device,
+                          (n,) + rest, dtype))
+    halos = dict(zip(((i, j) for i, j, _ in pairs), exchange(moves)))
     out = []
     for i, xs in enumerate(blocks):
-        zeros_l = xs.new_zeros((left,) + tuple(xs.shape[1:]))
-        zeros_r = xs.new_zeros((right,) + tuple(xs.shape[1:]))
-        lh = blocks[i - 1][blocks[i - 1].shape[0] - left :].to(xs.device) if i > 0 else zeros_l
-        rh = blocks[i + 1][:right].to(xs.device) if i + 1 < len(blocks) else zeros_r
+        if xs is None:
+            out.append(None)
+            continue
+        lh = halos.get((i, i - 1), xs.new_zeros((left,) + rest))
+        rh = halos.get((i, i + 1), xs.new_zeros((right,) + rest))
         out.append(torch.cat([lh, xs, rh], dim=0))
     return out
+
+
+#: one tensor moved between mesh positions by :func:`exchange`: the
+#: tensor on its source rank (None elsewhere), the source and destination
+#: ranks, the destination device, and the shape and dtype, which the
+#: destination rank must know
+Move = namedtuple("Move", ["tensor", "src", "dst", "device", "shape", "dtype"])
+
+
+def _nbytes(shape, dtype):
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def exchange(moves):
+    """
+    Carry out `moves` (:class:`Move`), which every rank lists alike and in
+    the same order, and return, in that order, each moved tensor on its
+    destination device where this rank is the destination, else None;
+    every returned tensor is contiguous, so that what follows computes
+    alike on either route. A move within this rank is a ``Tensor.to``.
+    Between ranks the bytes travel bit for bit, every tensor viewed as
+    ``uint8``, all the tensors of one pair of ranks packed into one
+    buffer, staged on this rank's card under NCCL and on the CPU under
+    gloo, in one paired send and receive for each peer, all posted
+    together (``batch_isend_irecv``), so that a layout swap among all the
+    ranks cannot deadlock. Where no move crosses ranks no collective runs.
+    """
+    me = process_rank()
+    out = [m.tensor.to(m.device).contiguous() if m.src == m.dst == me else None for m in moves]
+    if all(m.src == m.dst for m in moves):
+        return out
+    dist = torch.distributed
+    transport = _cluster()["transport"]
+    world = process_count()
+    sends = [[] for _ in range(world)]  # byte views of the tensors to each rank
+    recvs = [[] for _ in range(world)]  # (move index, bytes) from each rank
+    for k, m in enumerate(moves):
+        if m.src == m.dst:
+            continue
+        if m.src == me:
+            sends[m.dst].append(m.tensor.detach().contiguous().reshape(-1).view(torch.uint8)
+                                .to(transport))
+        elif m.dst == me:
+            recvs[m.src].append((k, _nbytes(m.shape, m.dtype)))
+    send_sizes = [sum(v.numel() for v in views) for views in sends]
+    recv_sizes = [sum(n for _, n in items) for items in recvs]
+    _COLLECTIVE_BYTES["sent"] += sum(send_sizes)
+    _COLLECTIVE_BYTES["received"] += sum(recv_sizes)
+    bufs = [torch.empty(n, dtype=torch.uint8, device=transport) for n in recv_sizes]
+    ops = [dist.P2POp(dist.isend, torch.cat(views), r)
+           for r, views in enumerate(sends) if send_sizes[r]]
+    ops += [dist.P2POp(dist.irecv, bufs[r], r) for r in range(world) if recv_sizes[r]]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for r, items in enumerate(recvs):
+        offset = 0
+        for k, n in items:
+            m = moves[k]
+            piece = bufs[r][offset : offset + n]
+            device = torch.device(m.device)
+            # a tensor of its own, so that the dtype view starts aligned
+            piece = piece.to(device) if piece.device != device else piece.clone()
+            out[k] = piece.view(m.dtype).reshape(m.shape)
+            offset += n
+    return out
+
+
+def replicate(items, ranks, device, dtype):
+    """
+    Each of `items`, ``(tensor on its owner or None, owner rank, shape)``
+    of `dtype`, on every rank of `ranks`: returns on such a rank the
+    items' tensors on `device`, in order, each its owner's bits
+    (:func:`exchange`, a copy where the owner is this rank). Every rank of
+    `ranks` calls this with the same items' owners and shapes.
+    """
+    me = process_rank()
+    moves = [Move(t, src, r, device, tuple(shape), dtype) for t, src, shape in items
+             for r in ranks]
+    return [t for t, m in zip(exchange(moves), moves) if m.dst == me]

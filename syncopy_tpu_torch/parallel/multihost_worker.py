@@ -6,7 +6,7 @@ scripts/multihost_worker.py).
 
     python -m syncopy_tpu_torch.parallel.multihost_worker RANK WORLD PORT \\
         [--device cpu|cuda] [--backend gloo|nccl] [--size small|full] \\
-        [--mesh TxC] [--positions K] [--timeout S] [--out DIR]
+        [--mesh TxC] [--positions K] [--timeout S] [--out DIR] [--csd FILE]
 
 Every rank joins through ``init_distributed`` (rank 0 serves the
 rendezvous on ``localhost:PORT``) with K positions on its device
@@ -47,6 +47,30 @@ ragged and, on four trial shards, empty shards. ``--size full`` runs
 coh, ppc and the band-pass on the north-star data (1000 trials x 1000
 samples x 64 channels at 1 kHz, float32 normal noise from seed 0).
 ``--out DIR`` writes each rank's results to ``DIR/rank<r>.npz``.
+
+Then the ``sharded`` group runs the five sharded routines on the mesh's
+trial axis: ``apply_fir_time_sharded``, ``mtmconvol_time_sharded``,
+``cwt_time_sharded``, ``wilson_sf_sharded`` and ``granger_sharded``. Each
+rank gathers the result (the halo'd routines' ``ShardedTensor.gather``)
+and checks that it is bitwise equal to rank 0's and to its own one-process
+mesh's, and within `HALO_TOL`, `WILSON_TOL` or `GRANGER_TOL` of the
+unsharded function on its device, that the bytes it sent and received
+in the routine and in the gather equal the count predicted from the
+shapes, the mesh and, for Wilson, the step count (``Sharded.traffic``),
+and that none of the port's kernels launched (these routines run cuFFT,
+cuBLAS and cuSOLVER).
+``--size small``: a (512, 4) recording of float32 noise (seed 3), an
+order-8 low-pass FIR, 16-sample Hann windows (fourier, tapers kept), 3
+Morlet(6) scales, and the 6-channel, 33-bin CSD of a seeded AR(2) network
+(:func:`small_csd`); also Wilson on the CSD's first 3 channels (on four
+positions: more positions than rows), Wilson on the channel axis (rank 1
+owns none of its positions) and ``halo_exchange`` of halos as long as the
+blocks. ``--size full``: chip_smoke.py phase 18d's shapes, a (250000, 64)
+recording (seed 1), the order-400 8-12 Hz FIR, 64-sample Hann windows
+(power), 30 Morlet(6) frequencies from 10 to 150 Hz, and the CSD of
+``--csd FILE`` (``csd`` in an .npz). ``--out DIR`` writes the results to
+``DIR/rank<r>_sharded.npz``, the rank's byte counts and halo blocks under
+``local/``.
 """
 
 import argparse
@@ -70,8 +94,23 @@ F64_TOL = 1e-5
 #: mesh with channel positions, in one process too)
 JACK_TOL = 1e-5
 
+#: the sharded routines' bars against the unsharded function (those of
+#: tests/test_torch_sharding.py and chip_smoke.py phase 18d): the FIR,
+#: STFT and CWT relative to the unsharded maximum, Wilson's H and Sigma
+#: relative to the larger of 1 and the maximum (complex128), Granger
+#: absolute
+HALO_TOL, WILSON_TOL, GRANGER_TOL = 1e-5, 1e-8, 1e-6
+
+#: granger_sharded's info values that the group saves, in this order
+GRANGER_INFO = ("max rel. err", "reg. factor", "initial cond. num")
+
 #: the small size: the AR(2) network's trials, samples, channels, seed
 SMALL = (41, 256, 4, 8)
+#: the sharded group's small recording (samples, channels, seed) and CSD
+#: (channels, samples a trial, trials, seed: 33 one-sided bins)
+SMALL_RECORDING, SMALL_CSD = (512, 4, 3), (6, 64, 40, 0)
+#: the sharded group's full recording: chip_smoke.py phase 18d's
+FULL_RECORDING = (250000, 64, 1)
 #: the full size: the north-star shape
 FULL = (1000, 1000, 64)
 FS = 1000.0
@@ -134,6 +173,184 @@ def frontends(spt, size):
         calls.update(csd=conn("csd"), granger=conn("granger"), mtmfft=mtmfft,
                      timelock=timelock, coh_jackknife=conn("coh", jackknife=True))
     return calls
+
+
+def small_csd(spt):
+    """The trial-averaged Hann CSD (complex128 numpy) of a seeded AR(2)
+    network of `SMALL_CSD`'s shape, as tests/test_torch_sharding.py makes
+    its CSDs."""
+    n_chan, n_samples, n_trials, seed = SMALL_CSD
+    adj = spt.synthdata.mk_RandomAdjMat(n_chan, conn_thresh=0.8, max_coupling=0.15, seed=seed)
+    adj = adj / max(1.0, 3 * np.abs(np.linalg.eigvals(adj)).max())
+    ad = spt.synthdata.ar2_network(AdjMat=adj, nTrials=n_trials, nSamples=n_samples, seed=seed)
+    x = np.stack([np.asarray(ad.trials[k], dtype=np.float64) for k in range(n_trials)])
+    X = np.fft.rfft(np.hanning(n_samples)[None, :, None] * (x - x.mean(axis=1, keepdims=True)),
+                    axis=1)
+    return np.einsum("bfi,bfj->fij", X, X.conj()) / n_trials
+
+
+class Sharded:
+    """One sharded routine of the group: ``run(mesh)`` calls it (the
+    collectives of the call), ``whole(raw, device)`` makes every rank hold
+    the whole result as ``{key: tensor}`` (the gather), ``plain(device)``
+    gives the unsharded function's values of the keys it returns,
+    ``tol``/``rel`` the bar (relative to the larger of 1 and the maximum
+    with ``rel="one"``, to the maximum with ``rel="max"``, absolute with
+    None); ``traffic(ranks, rank, world, got, twin)`` the predicted
+    (routine sent, received, gather sent, received) bytes of `rank` on the
+    axis's owner `ranks`, from the shapes and `got`'s step count (`twin`:
+    the one-process mesh of the same shape)."""
+
+    def __init__(self, run, whole, plain, tol, rel, traffic):
+        self.run, self.whole, self.plain = run, whole, plain
+        self.tol, self.rel, self.traffic = tol, rel, traffic
+
+
+def _bytes(moves, rank):
+    """`rank`'s (sent, received) bytes over ``(src, dst, nbytes)`` moves."""
+    return (sum(n for s, d, n in moves if s == rank != d),
+            sum(n for s, d, n in moves if d == rank != s))
+
+
+def halo_moves(ranks, left, right, row_bytes):
+    """The halos' ``(src, dst, nbytes)``: each block's left halo from its
+    left neighbour, its right one from its right neighbour."""
+    n = len(ranks)
+    return ([(ranks[i - 1], ranks[i], left * row_bytes) for i in range(1, n)]
+            + [(ranks[i + 1], ranks[i], right * row_bytes) for i in range(n - 1)])
+
+
+def gather_moves(ranks, block_bytes, world):
+    """ShardedTensor.gather's (mesh.replicate): each block from its owner
+    to every other rank."""
+    return [(src, r, n) for src, n in zip(ranks, block_bytes) for r in range(world) if r != src]
+
+
+def wilson_moves(ranks, F, N, n_iter, world, itemsize=16):
+    """wilson_sf_sharded's on a mesh that spans processes: the setup (each
+    frequency block's CSD, valid bins and psi0 from the first position),
+    per step the two layout swaps, the zero-lag rows to the first
+    position, its correction back and each frequency block's error (a
+    real scalar) to every other rank, then the inverse to every block, the
+    gather of Hfunc and Sigma to every other rank."""
+    from .mesh import split_sizes
+
+    f, r = split_sizes(F, len(ranks)), split_sizes(N, len(ranks))
+    freq = [p for p in range(len(ranks)) if f[p]]
+    rows = [q for q in range(len(ranks)) if r[q]]
+    home, mat = ranks[0], N * N * itemsize
+    setup = [(home, ranks[p], f[p] * mat + f[p] + mat) for p in freq]
+    swap = [(ranks[p], ranks[q], f[p] * r[q] * N * itemsize) for q in rows for p in freq]
+    step = (swap + [(b, a, n) for a, b, n in swap]
+            + [(ranks[q], home, r[q] * N * itemsize) for q in rows]
+            + [(home, ranks[p], mat) for p in freq]
+            + gather_moves([ranks[p] for p in freq], [itemsize // 2] * len(freq), world))
+    end = ([(home, ranks[p], mat) for p in freq]
+           + gather_moves([ranks[p] for p in freq], [f[p] * mat for p in freq], world)
+           + [(home, b, mat) for b in range(world) if b != home])
+    return setup + step * n_iter + end
+
+
+def sharded_cases(spt, size, device, csd=None):
+    """The sharded group's routines at `size` on `device`: ``{name:
+    Sharded}``; the full size takes `csd` (complex128 numpy)."""
+    from ..ops import connectivity as pc
+    from ..ops import filtering as pf
+    from ..ops import stft as ps
+    from ..ops import wavelet as pw
+    from ..ops.windows import make_tapers
+
+    if size == "small":
+        T, C, seed = SMALL_RECORDING
+        fir = pf.design_wsinc("hamming", 8, 0.1, "lp")
+        nperseg, output, keeptapers = 16, "fourier", True
+        scales = np.array([0.005, 0.01, 0.02])
+        csd = small_csd(spt)
+    else:
+        T, C, seed = FULL_RECORDING
+        fir = pf.design_wsinc("hamming", 400, np.array([8.0, 12.0]) / FS, "bp")
+        nperseg, output, keeptapers = 64, "pow", False
+        scales = pw.Morlet(6).scale_from_period(1.0 / np.linspace(10.0, 150.0, 30))
+        if csd is None:
+            raise ValueError("--size full runs Wilson and Granger on the CSD of --csd FILE")
+    x = np.random.default_rng(seed).normal(size=(T, C)).astype("f4")
+    x_dev = torch.from_numpy(x).to(device)
+    tapers = torch.from_numpy(make_tapers("hann", None, nperseg, nperseg, FS))
+    dt = 1.0 / FS
+    csd = torch.from_numpy(csd)
+
+    def halo_case(run, plain, left, right, out_bytes):
+        """A halo'd routine: `out_bytes` is its output's bytes per sample."""
+        def traffic(ranks, rank, world, got, twin):
+            blocks = [T // len(ranks) * out_bytes] * len(ranks)
+            return _bytes(halo_moves(ranks, left, right, C * 4), rank) + _bytes(
+                gather_moves(ranks, blocks, world), rank)
+        return Sharded(run, lambda raw, dev: {"data": raw.gather(dev)}, plain, HALO_TOL, "max",
+                       traffic)
+
+    def wilson_case(C_in, axis):
+        def run(mesh):
+            return pc.wilson_sf_sharded(C_in, mesh=mesh, axis_name=axis)
+
+        def whole(raw, dev):
+            return dict(zip(["H", "Sigma", "converged", "err", "n_iter"], raw))
+
+        def plain(dev):
+            H, Sigma = pc.wilson_sf(C_in.to(dev))[:2]
+            return {"H": H, "Sigma": Sigma}
+
+        def traffic(ranks, rank, world, got, twin):
+            moves = wilson_moves(ranks, C_in.shape[0], C_in.shape[-1], int(got["n_iter"]), world)
+            return _bytes(moves, rank) + (0, 0)
+        return Sharded(run, whole, plain, WILSON_TOL, "one", traffic)
+
+    def granger_whole(raw, dev):
+        G, info = raw
+        return {"G": G, "converged": torch.tensor(info["converged"]),
+                "info": torch.tensor([info[k] for k in GRANGER_INFO], dtype=torch.float64)}
+
+    def granger_plain(dev):
+        reg, factor, ini_cn = pc.regularize_csd(csd.to(dev), cond_max=1e4, eps_max=1e-1)
+        H, Sigma, conv, err, _ = pc.wilson_sf(reg, nIter=100, rtol=5e-6)
+        return {"G": pc.granger(reg, H, Sigma)}
+
+    def granger_traffic(ranks, rank, world, got, twin):
+        # Wilson inside takes the steps it takes on the one-process mesh;
+        # then G and the two regularization numbers to every other rank
+        reg = pc.regularize_csd(csd.to(twin.home_device()), cond_max=1e4, eps_max=1e-1)[0]
+        n_iter = int(pc.wilson_sf_sharded(reg, mesh=twin, nIter=100, rtol=5e-6)[4])
+        F, N = csd.shape[0], csd.shape[-1]
+        moves = wilson_moves(ranks, F, N, n_iter, world)
+        moves += [(ranks[0], b, F * N * N * 8 + 16) for b in range(world) if b != ranks[0]]
+        return _bytes(moves, rank) + (0, 0)
+
+    n_spec = (tapers.shape[0] if keeptapers else 1) * (nperseg // 2 + 1) * (8 if output ==
+                                                                             "fourier" else 4)
+    cases = {
+        "apply_fir_time_sharded": halo_case(
+            lambda mesh: pf.apply_fir_time_sharded(x_dev, fir, mesh),
+            lambda dev: {"data": pf.apply_fir(x_dev[None], fir)[0]},
+            (len(fir) - 1) // 2, (len(fir) - 1) // 2, C * 4),
+        "mtmconvol_time_sharded": halo_case(
+            lambda mesh: ps.mtmconvol_time_sharded(x_dev, tapers, nperseg, mesh, output=output,
+                                                   keeptapers=keeptapers),
+            lambda dev: {"data": ps.mtmconvol(x_dev[None], tapers, nperseg, hop=1, n_time=T,
+                                              output=output, keeptapers=keeptapers)[0]},
+            nperseg // 2, nperseg - nperseg // 2, n_spec * C),
+        "cwt_time_sharded": halo_case(
+            lambda mesh: pw.cwt_time_sharded(x_dev, pw.Morlet(6), scales, dt, mesh),
+            lambda dev: {"data": pw.cwt(x_dev, pw.Morlet(6), scales, dt)},
+            int(np.ceil(5.0 * scales.max() / dt)) + 1, int(np.ceil(5.0 * scales.max() / dt)) + 1,
+            len(scales) * C * 8),
+        "wilson_sf_sharded": wilson_case(csd, "trial"),
+        "granger_sharded": Sharded(lambda mesh: pc.granger_sharded(csd, mesh=mesh),
+                                   granger_whole, granger_plain, GRANGER_TOL, None,
+                                   granger_traffic),
+    }
+    if size == "small":
+        cases["wilson_sf_sharded_3ch"] = wilson_case(csd[:, :3, :3].contiguous(), "trial")
+        cases["wilson_sf_sharded_channel_axis"] = wilson_case(csd, "channel")
+    return cases
 
 
 def trials_of(adata):
@@ -230,6 +447,22 @@ def bitwise(a, b):
     return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
+def same_bits(a, b):
+    """Whether tensors `a` and `b` hold the same shape, dtype and bytes."""
+    def raw(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(raw(a), raw(b).to(a.device))
+
+
+def sharded_diff(got, want, rel):
+    """max|got - want| over the larger of 1 and max|want| (`rel` "one"),
+    over max|want| ("max") or absolute (None), in float64 on `want`'s
+    device."""
+    d = (got.to(want.device, torch.complex128) - want.to(torch.complex128)).abs().max().item()
+    scale = want.abs().max().item()
+    return d / {"one": max(scale, 1.0), "max": scale, None: 1.0}[rel]
+
+
 def max_diff(a, b):
     d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
     return float(np.nanmax(d)) if d.size else 0.0
@@ -256,6 +489,8 @@ def main(argv=None):
     parser.add_argument("--timeout", type=float, default=120.0, metavar="S")
     parser.add_argument("--reps", type=int, default=1, help="timed calls of each route")
     parser.add_argument("--out", default=None, metavar="DIR")
+    parser.add_argument("--csd", default=None, metavar="FILE",
+                        help="the full size's Wilson and Granger CSD (`csd` in an .npz)")
     args = parser.parse_args(argv)
 
     import syncopy_tpu_torch as spt
@@ -384,11 +619,114 @@ def main(argv=None):
 
     if args.out:
         np.savez("{}/rank{}.npz".format(args.out, rank), **saved)
+    del adata
+    csd = None if args.csd is None else np.load(args.csd)["csd"]
+    sharded_group(spt, args, mesh, twin, device, timed, csd)
     print("MULTIHOST OK rank {}/{} mesh={}x{} positions={} backend={} device={}".format(
         rank, world, n_trial, n_chan, n_pos, dist.get_backend(), device), flush=True)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def sharded_group(spt, args, mesh, twin, device, timed, csd):
+    """The sharded routines on `mesh` (over the ranks) and `twin` (one
+    process, the same shape); see the module's docstring."""
+    from . import mesh as pmesh
+
+    dist = torch.distributed
+    rank, world = args.rank, args.world
+    saved = {}
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    for name, case in sharded_cases(spt, args.size, device, csd).items():
+        axis = "channel" if name.endswith("channel_axis") else "trial"
+        ranks = pmesh.axis_ranks(mesh, axis)
+        # -- the checked call, then the gather, each with its bytes
+        pmesh.reset_collective_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        raw = case.run(mesh)
+        synchronize(device)
+        routine_bytes = pmesh.collective_counts()
+        got = case.whole(raw, device)
+        synchronize(device)
+        first = time.perf_counter() - t0
+        total = pmesh.collective_counts()
+        moved = (routine_bytes["sent"], routine_bytes["received"],
+                 total["sent"] - routine_bytes["sent"],
+                 total["received"] - routine_bytes["received"])
+        del raw
+        want = case.traffic(ranks, rank, world, got, twin)
+        if moved != want:
+            raise AssertionError("rank {} {}: bytes sent, received in the routine and the "
+                                 "gather {}, predicted {}".format(rank, name, moved, want))
+        for k, v in got.items():
+            ref = pmesh.share_from(v if rank == 0 else None, 0, device)[0]
+            if not same_bits(v, ref):
+                raise AssertionError("rank {} {} {}: not bitwise equal to rank 0's".format(
+                    rank, name, k))
+            del ref
+        local = case.whole(case.run(twin), device)
+        for k, v in got.items():
+            if not same_bits(v, local[k]):
+                raise AssertionError("rank {} {} {}: not bitwise equal to the one-process "
+                                     "mesh's".format(rank, name, k))
+        del local
+        plain = case.plain(device)
+        diff = max(sharded_diff(got[k], v, case.rel) for k, v in plain.items())
+        del plain
+        if not diff <= case.tol or ("converged" in got and not bool(got["converged"])):
+            raise AssertionError("rank {} {}: {:.3e} from the unsharded function (bar {}), "
+                                 "converged {}".format(rank, name, diff, case.tol,
+                                                       got.get("converged")))
+        steps = int(got["n_iter"]) if "n_iter" in got else None
+        if args.out:
+            saved.update({"{}/{}".format(name, k): v.cpu().numpy() for k, v in got.items()})
+            saved["local/{}/bytes".format(name)] = np.array(moved)
+        del got
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- walls, in turns
+        walls = {"mesh": [], "unsharded": [], "one-process mesh": []}
+        for _ in range(args.reps):
+            walls["mesh"].append(timed(lambda: case.whole(case.run(mesh), device), False))
+            walls["unsharded"].append(timed(lambda: case.plain(device), True))
+            walls["one-process mesh"].append(timed(lambda: case.whole(case.run(twin), device),
+                                                   True))
+        wall_text = ", ".join("{} {}".format(k, "median {:.4f} s ({})".format(
+            statistics.median(v), ", ".join("{:.4f}".format(w) for w in v))
+            if v and v[0] is not None else "not timed on this rank") for k, v in walls.items())
+        print("rank {}/{} {}: bitwise equal to rank 0 and to the one-process mesh; max diff to "
+              "the unsharded function {:.3e} (bar {}){}; bytes sent / received in the routine "
+              "{} / {}, in the gather {} / {} (as predicted); first call {:.4f} s; walls: "
+              "{}".format(rank, world, name, diff, case.tol,
+                          "" if steps is None else "; {} steps".format(steps), *moved, first,
+                          wall_text), flush=True)
+        print("MULTIHOST " + json.dumps({
+            "rank": rank, "world": world, "routine": name, "max_diff": diff, "tol": case.tol,
+            "steps": steps, "bytes": moved, "predicted": want, "first_s": first,
+            "walls_s": walls}), flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    if launches:
+        raise AssertionError("rank {}: the sharded routines launched {}".format(rank, launches))
+    if args.size == "small":
+        # halos as long as the blocks, between positions of one rank and of two
+        x = torch.arange(16 * 3, dtype=torch.float32).reshape(16, 3)
+        devices = pmesh.axis_devices(mesh, "trial")
+        ranks = pmesh.axis_ranks(mesh, "trial")
+        n = 16 // len(devices)
+        blocks = pmesh.split_along(x, devices, ranks=ranks)
+        for i, ext in enumerate(pmesh.halo_exchange(blocks, n, n, ranks)):
+            if ext is not None:
+                saved["local/halo_exchange/{}".format(i)] = ext.cpu().numpy()
+    if args.out:
+        np.savez("{}/rank{}_sharded.npz".format(args.out, rank), **saved)
 
 
 if __name__ == "__main__":

@@ -212,11 +212,3 @@ def SPYExceptionHandler(*args, **kwargs):
         import traceback
 
         traceback.print_exception(exc_type, exc, tb)
-
-
-def not_ported(what, roadmap_item):
-    """The error raised where the PyTorch port has not reached a feature
-    yet; `roadmap_item` names the ROADMAP entry that ports it."""
-    return NotImplementedError(
-        "{} is not ported to syncopy_tpu_torch yet; it lands with {}".format(what, roadmap_item)
-    )
