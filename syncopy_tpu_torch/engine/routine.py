@@ -52,6 +52,7 @@ from ..parallel.mesh import (Mesh, device_context, gather_shards, pad_to_multipl
                              process_rank, resolve_parallel, share_from)
 from ..shared.errors import SPYError, SPYValueError
 from ..shared.log import get_logger
+from ..shared.profiling import span
 from . import resident as _resident
 from .resident import DeferredArray, DeviceResident, Record, _admit
 
@@ -426,74 +427,76 @@ class ComputationalRoutine:
     # ------------------------------------------------------------------ #
 
     def initialize(self, data, out_stackingdim, keeptrials=True):
-        from ..datatype.selector import Selector
+        with span("spt.engine.initialize"):
+            from ..datatype.selector import Selector
 
-        self.keeptrials = bool(keeptrials)
-        self.out_stackingdim = int(out_stackingdim)
+            self.keeptrials = bool(keeptrials)
+            self.out_stackingdim = int(out_stackingdim)
 
-        self.selector = data.selection if data.selection is not None else Selector(data, None)
-        n_sel = len(self.selector.trial_ids)
-        if n_sel == 0:
-            raise SPYValueError(legal="at least one selected trial", varname="trials", actual="0")
+            self.selector = data.selection if data.selection is not None else Selector(data, None)
+            n_sel = len(self.selector.trial_ids)
+            if n_sel == 0:
+                raise SPYValueError(legal="at least one selected trial", varname="trials",
+                                    actual="0")
 
-        sel = self.selector
-        tsel = getattr(sel, "time", None)
-        trivial_time = tsel is None or all(t == slice(None) for t in tsel)
-        if "sample" not in data.dimord and trivial_time:
-            # without a time selection trials differ only in the stacking-dim
-            # extent: vectorize over sampleinfo instead of indexing per trial
-            si = data.sampleinfo
-            lens = (si[:, 1] - si[:, 0]).astype(np.int64)
-            taxis = data.dimord.index("time")
-            base = list(self._selected_trial_shape(data, 0))
-            shapes = []
-            for tid in sel.trial_ids:
-                s = base.copy()
-                s[taxis] = int(lens[tid])
-                shapes.append(tuple(s))
-        else:
-            shapes = [self._selected_trial_shape(data, k) for k in range(n_sel)]
+            sel = self.selector
+            tsel = getattr(sel, "time", None)
+            trivial_time = tsel is None or all(t == slice(None) for t in tsel)
+            if "sample" not in data.dimord and trivial_time:
+                # without a time selection trials differ only in the stacking-dim
+                # extent: vectorize over sampleinfo instead of indexing per trial
+                si = data.sampleinfo
+                lens = (si[:, 1] - si[:, 0]).astype(np.int64)
+                taxis = data.dimord.index("time")
+                base = list(self._selected_trial_shape(data, 0))
+                shapes = []
+                for tid in sel.trial_ids:
+                    s = base.copy()
+                    s[taxis] = int(lens[tid])
+                    shapes.append(tuple(s))
+            else:
+                shapes = [self._selected_trial_shape(data, k) for k in range(n_sel)]
 
-        # bucket positions by identical shape: one chunk plan per bucket
-        buckets = {}
-        for pos, shp in enumerate(shapes):
-            buckets.setdefault(shp, []).append(pos)
-        self.buckets = buckets
-        # the input dtype, for output rules that depend on it
-        self.in_dtype = np.dtype(data.data.dtype)
-        self.out_per_trial_shapes = {shp: self.output_trial_shape(shp) for shp in buckets}
-        out_dtype = next(iter(self.out_per_trial_shapes.values()))[1]
+            # bucket positions by identical shape: one chunk plan per bucket
+            buckets = {}
+            for pos, shp in enumerate(shapes):
+                buckets.setdefault(shp, []).append(pos)
+            self.buckets = buckets
+            # the input dtype, for output rules that depend on it
+            self.in_dtype = np.dtype(data.data.dtype)
+            self.out_per_trial_shapes = {shp: self.output_trial_shape(shp) for shp in buckets}
+            out_dtype = next(iter(self.out_per_trial_shapes.values()))[1]
 
-        self._fast_plan = self._plan_fast_gather(data)
+            self._fast_plan = self._plan_fast_gather(data)
 
-        out_shapes = [self.out_per_trial_shapes[shp][0] for shp in shapes]
-        if not self.keeptrials and len(set(out_shapes)) > 1:
-            raise SPYValueError(
-                legal="identical trial shapes for trial averaging",
-                varname="keeptrials",
-                actual="shapes {}".format(sorted(set(out_shapes))),
-            )
-
-        sdim = self.out_stackingdim
-        ref_other = [s for i, s in enumerate(out_shapes[0]) if i != sdim]
-        for oshp in out_shapes[1:]:
-            other = [s for i, s in enumerate(oshp) if i != sdim]
-            if other != ref_other:
+            out_shapes = [self.out_per_trial_shapes[shp][0] for shp in shapes]
+            if not self.keeptrials and len(set(out_shapes)) > 1:
                 raise SPYValueError(
-                    legal="matching non-stacking output dims across trials",
-                    varname="output shape",
-                    actual=str(sorted(set(out_shapes))),
+                    legal="identical trial shapes for trial averaging",
+                    varname="keeptrials",
+                    actual="shapes {}".format(sorted(set(out_shapes))),
                 )
-        if self.keeptrials:
-            total_stack = sum(oshp[sdim] for oshp in out_shapes)
-        else:
-            total_stack = out_shapes[0][sdim]
-        out_total = list(out_shapes[0])
-        out_total[sdim] = total_stack
-        self.outputShape = tuple(out_total)
-        self.dtype = out_dtype
-        self._per_trial_out_shapes_ordered = out_shapes
-        self.numTrials = n_sel
+
+            sdim = self.out_stackingdim
+            ref_other = [s for i, s in enumerate(out_shapes[0]) if i != sdim]
+            for oshp in out_shapes[1:]:
+                other = [s for i, s in enumerate(oshp) if i != sdim]
+                if other != ref_other:
+                    raise SPYValueError(
+                        legal="matching non-stacking output dims across trials",
+                        varname="output shape",
+                        actual=str(sorted(set(out_shapes))),
+                    )
+            if self.keeptrials:
+                total_stack = sum(oshp[sdim] for oshp in out_shapes)
+            else:
+                total_stack = out_shapes[0][sdim]
+            out_total = list(out_shapes[0])
+            out_total[sdim] = total_stack
+            self.outputShape = tuple(out_total)
+            self.dtype = out_dtype
+            self._per_trial_out_shapes_ordered = out_shapes
+            self.numTrials = n_sel
 
     def _plan_fast_gather(self, data):
         """
@@ -639,13 +642,14 @@ class ComputationalRoutine:
         self._aux_chunked = {}
         self._resident_mode = self._decide_resident(device_resident)
         self._run(data, out)
-        self._finalize_aux()
-        self.write_log(data, out, log_dict)
-        self.process_metadata(data, out)
-        # seal after process_metadata: the trialdefinition assignment bumps
-        # the owner's cache token, and consumers match the sealed value
-        if getattr(out, "_device_resident", None) is not None:
-            out._device_resident.seal()
+        with span("spt.engine.finalize"):
+            self._finalize_aux()
+            self.write_log(data, out, log_dict)
+            self.process_metadata(data, out)
+            # seal after process_metadata: the trialdefinition assignment bumps
+            # the owner's cache token, and consumers match the sealed value
+            if getattr(out, "_device_resident", None) is not None:
+                out._device_resident.seal()
 
     def _decide_resident(self, device_resident):
         """Should this run keep its per-trial results on the device? Only a
@@ -785,32 +789,35 @@ class ComputationalRoutine:
             for s0 in range(0, len(rec.positions), chunk):
                 n = min(chunk, len(rec.positions) - s0)
                 blocks = []
-                for i, nv in enumerate(_shard_rows(n, rows, n_shard)):
-                    device = self._grid[i, 0]
-                    a = s0 + i * rows
-                    block = _resident.take_rows(rec, a, a + nv, device)
-                    if pad and nv < rows:
-                        zeros = torch.zeros((rows - nv,) + tuple(block.shape[1:]),
-                                            dtype=block.dtype, device=device)
-                        block = torch.cat([block, zeros], dim=0)
-                    blocks.append(block)
+                with span("spt.engine.resident"):
+                    for i, nv in enumerate(_shard_rows(n, rows, n_shard)):
+                        device = self._grid[i, 0]
+                        a = s0 + i * rows
+                        block = _resident.take_rows(rec, a, a + nv, device)
+                        if pad and nv < rows:
+                            zeros = torch.zeros((rows - nv,) + tuple(block.shape[1:]),
+                                                dtype=block.dtype, device=device)
+                            block = torch.cat([block, zeros], dim=0)
+                        blocks.append(block)
                 yield blocks, list(rec.positions[s0 : s0 + n])
 
     def _upload_block(self, data, block_pos, rows, shp, in_dtype, device):
         """The trials at `block_pos` gathered, zero-padded to `rows` rows
         and uploaded to `device`."""
-        if block_pos:
-            block = self._gather_batch(data, block_pos)
-            if len(block_pos) < rows:
-                pad = np.zeros((rows - len(block_pos),) + block.shape[1:], block.dtype)
-                block = np.concatenate([block, pad], axis=0)
-        else:
-            block = np.zeros((rows,) + tuple(shp), in_dtype)  # an all-padding shard
-        with warnings.catch_warnings():
+        with span("spt.engine.gather"):
+            if block_pos:
+                block = self._gather_batch(data, block_pos)
+                if len(block_pos) < rows:
+                    pad = np.zeros((rows - len(block_pos),) + block.shape[1:], block.dtype)
+                    block = np.concatenate([block, pad], axis=0)
+            else:
+                block = np.zeros((rows,) + tuple(shp), in_dtype)  # an all-padding shard
+            block = np.ascontiguousarray(block)
+        with warnings.catch_warnings(), span("spt.engine.upload"):
             # a view of a read-back resident payload is read-only; the
             # tensor is only read
             warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            tensor = torch.from_numpy(np.ascontiguousarray(block)).to(device)
+            tensor = torch.from_numpy(block).to(device)
         _count_transfer("h2d", block.nbytes)
         return tensor
 
@@ -827,17 +834,18 @@ class ComputationalRoutine:
         n_shard = grid.shape[0]
         rows = chunk // n_shard
         owned = self._grid_ranks[:, 0] == process_rank()
-        cache_key = (
-            getattr(data, "_cache_token", None),
-            self._selection_fingerprint(data),
-            shp,
-            chunk,
-            Mesh(grid, ranks=self._grid_ranks).key,
-            str(in_dtype),
-            tuple(positions),
-        )
-        cacheable = cache_key[0] is not None and cache_key[1] is not None
-        cached = _device_cache_get(cache_key) if cacheable else None
+        with span("spt.engine.store_key"):
+            cache_key = (
+                getattr(data, "_cache_token", None),
+                self._selection_fingerprint(data),
+                shp,
+                chunk,
+                Mesh(grid, ranks=self._grid_ranks).key,
+                str(in_dtype),
+                tuple(positions),
+            )
+            cacheable = cache_key[0] is not None and cache_key[1] is not None
+            cached = _device_cache_get(cache_key) if cacheable else None
         built = [] if (cached is None and cacheable and DEVICE_CACHE_BYTES > 0) else None
         plan["source"] = "trial store" if cached is not None else "upload"
         for k, c0 in enumerate(range(0, len(positions), chunk)):
@@ -917,16 +925,18 @@ class ComputationalRoutine:
         The auxiliary inputs' rows start at `a0`."""
         device = self._grid[i, 0]
         n_aux = rows if fused else nv
-        res = _dispatch_with_recovery(
-            lambda: self._shard_call(
-                i, block if fused else block[:nv], nv,
-                [self._upload_aux(a, a0, nv, n_aux, device) for a in aux_all], fused, chan_axis),
-            what="{} chunk dispatch".format(self.__class__.__name__))
-        if fused or self.keeptrials:
-            return res
-        if isinstance(res, tuple):
-            return res[0].sum(dim=0), res[1]
-        return res.sum(dim=0)
+        with span("spt.engine.dispatch"):
+            res = _dispatch_with_recovery(
+                lambda: self._shard_call(
+                    i, block if fused else block[:nv], nv,
+                    [self._upload_aux(a, a0, nv, n_aux, device) for a in aux_all], fused,
+                    chan_axis),
+                what="{} chunk dispatch".format(self.__class__.__name__))
+            if fused or self.keeptrials:
+                return res
+            if isinstance(res, tuple):
+                return res[0].sum(dim=0), res[1]
+            return res.sum(dim=0)
 
     def _run(self, data, out):
         sdim = self.out_stackingdim
@@ -936,7 +946,8 @@ class ComputationalRoutine:
         offsets = np.concatenate([[0], np.cumsum(stack_lens)]).astype(int)
         host_out = None
         if self.keeptrials and not resident_out:
-            host_out = _allocate_host_output(self.outputShape, self.dtype, out)
+            with span("spt.engine.readback"):
+                host_out = _allocate_host_output(self.outputShape, self.dtype, out)
 
         consume_plan = self._plan_resident_consume(data)
         if consume_plan is None:
@@ -1020,7 +1031,8 @@ class ComputationalRoutine:
                         shards.append(
                             res.to(out_dtype).reshape((nv,) + tuple(out_shp)).contiguous())
                     else:
-                        _readback_rows(host_out, res, shard_pos, offsets, sdim)
+                        with span("spt.engine.readback"):
+                            _readback_rows(host_out, res, shard_pos, offsets, sdim)
                 if part is not None:
                     # the trial shards' partials, summed in shard order on
                     # the mesh's first position, or on each rank's home
@@ -1032,15 +1044,16 @@ class ComputationalRoutine:
         if not self.keeptrials:
             avg = acc / self.numTrials
             if self._post_fn is not None:
-                with device_context(avg.device):
+                with device_context(avg.device), span("spt.engine.post"):
                     avg = self._post_fn(avg)
             self.outputShape = tuple(avg.shape)
             self.dtype = np.dtype(str(avg.dtype).replace("torch.", ""))
-            host_out = _allocate_host_output(self.outputShape, self.dtype, out)
-            if isinstance(host_out, np.ndarray):
-                torch.from_numpy(host_out).copy_(avg)
-            else:
-                host_out[...] = avg.cpu().numpy()
+            with span("spt.engine.readback"):
+                host_out = _allocate_host_output(self.outputShape, self.dtype, out)
+                if isinstance(host_out, np.ndarray):
+                    torch.from_numpy(host_out).copy_(avg)
+                else:
+                    host_out[...] = avg.cpu().numpy()
             _count_transfer("d2h", avg.numel() * avg.element_size())
         elif resident_out:
             res = DeviceResident(records, self.outputShape, self.dtype, offsets, sdim,

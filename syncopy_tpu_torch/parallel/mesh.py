@@ -39,6 +39,7 @@ import torch
 
 from ..shared.errors import SPYParallelError, SPYValueError, SPYWarning
 from ..shared.log import get_logger
+from ..shared.profiling import span
 
 __all__ = [
     "Mesh",
@@ -304,25 +305,26 @@ def share_from(tensor, src, device, info=None):
     info)``; `src` gets its own tensor back, copied only where it lies
     elsewhere.
     """
-    dist = torch.distributed
-    transport = _cluster()["transport"]
-    rank, world = dist.get_rank(), dist.get_world_size()
-    meta = [(tuple(tensor.shape), tensor.dtype, info) if rank == src else None]
-    dist.broadcast_object_list(meta, src=src, device=transport)
-    shape, dtype, info = meta[0]
-    if rank == src:
-        buf = tensor.detach().contiguous().reshape(-1).view(torch.uint8).to(transport)
-        _COLLECTIVE_BYTES["sent"] += buf.numel() * (world - 1)
-    else:
-        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-        buf = torch.empty(nbytes, dtype=torch.uint8, device=transport)
-        _COLLECTIVE_BYTES["received"] += nbytes
-    if buf.numel():
-        dist.broadcast(buf, src=src)
-    device = torch.device(device)
-    if rank == src and buf.device != device:
-        return tensor.to(device), info
-    return buf.view(dtype).reshape(shape).to(device), info
+    with span("spt.mesh.share_from"):
+        dist = torch.distributed
+        transport = _cluster()["transport"]
+        rank, world = dist.get_rank(), dist.get_world_size()
+        meta = [(tuple(tensor.shape), tensor.dtype, info) if rank == src else None]
+        dist.broadcast_object_list(meta, src=src, device=transport)
+        shape, dtype, info = meta[0]
+        if rank == src:
+            buf = tensor.detach().contiguous().reshape(-1).view(torch.uint8).to(transport)
+            _COLLECTIVE_BYTES["sent"] += buf.numel() * (world - 1)
+        else:
+            nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=transport)
+            _COLLECTIVE_BYTES["received"] += nbytes
+        if buf.numel():
+            dist.broadcast(buf, src=src)
+        device = torch.device(device)
+        if rank == src and buf.device != device:
+            return tensor.to(device), info
+        return buf.view(dtype).reshape(shape).to(device), info
 
 
 def collective_counts():
@@ -724,45 +726,47 @@ def exchange(moves):
     together (``batch_isend_irecv``), so that a layout swap among all the
     ranks cannot deadlock. Where no move crosses ranks no collective runs.
     """
-    me = process_rank()
-    out = [m.tensor.to(m.device).contiguous() if m.src == m.dst == me else None for m in moves]
-    if all(m.src == m.dst for m in moves):
+    with span("spt.mesh.exchange"):
+        me = process_rank()
+        out = [m.tensor.to(m.device).contiguous() if m.src == m.dst == me else None
+               for m in moves]
+        if all(m.src == m.dst for m in moves):
+            return out
+        dist = torch.distributed
+        transport = _cluster()["transport"]
+        world = process_count()
+        sends = [[] for _ in range(world)]  # byte views of the tensors to each rank
+        recvs = [[] for _ in range(world)]  # (move index, bytes) from each rank
+        for k, m in enumerate(moves):
+            if m.src == m.dst:
+                continue
+            if m.src == me:
+                sends[m.dst].append(m.tensor.detach().contiguous().reshape(-1).view(torch.uint8)
+                                    .to(transport))
+            elif m.dst == me:
+                recvs[m.src].append((k, _nbytes(m.shape, m.dtype)))
+        send_sizes = [sum(v.numel() for v in views) for views in sends]
+        recv_sizes = [sum(n for _, n in items) for items in recvs]
+        _COLLECTIVE_BYTES["sent"] += sum(send_sizes)
+        _COLLECTIVE_BYTES["received"] += sum(recv_sizes)
+        bufs = [torch.empty(n, dtype=torch.uint8, device=transport) for n in recv_sizes]
+        ops = [dist.P2POp(dist.isend, torch.cat(views), r)
+               for r, views in enumerate(sends) if send_sizes[r]]
+        ops += [dist.P2POp(dist.irecv, bufs[r], r) for r in range(world) if recv_sizes[r]]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for r, items in enumerate(recvs):
+            offset = 0
+            for k, n in items:
+                m = moves[k]
+                piece = bufs[r][offset : offset + n]
+                device = torch.device(m.device)
+                # a tensor of its own, so that the dtype view starts aligned
+                piece = piece.to(device) if piece.device != device else piece.clone()
+                out[k] = piece.view(m.dtype).reshape(m.shape)
+                offset += n
         return out
-    dist = torch.distributed
-    transport = _cluster()["transport"]
-    world = process_count()
-    sends = [[] for _ in range(world)]  # byte views of the tensors to each rank
-    recvs = [[] for _ in range(world)]  # (move index, bytes) from each rank
-    for k, m in enumerate(moves):
-        if m.src == m.dst:
-            continue
-        if m.src == me:
-            sends[m.dst].append(m.tensor.detach().contiguous().reshape(-1).view(torch.uint8)
-                                .to(transport))
-        elif m.dst == me:
-            recvs[m.src].append((k, _nbytes(m.shape, m.dtype)))
-    send_sizes = [sum(v.numel() for v in views) for views in sends]
-    recv_sizes = [sum(n for _, n in items) for items in recvs]
-    _COLLECTIVE_BYTES["sent"] += sum(send_sizes)
-    _COLLECTIVE_BYTES["received"] += sum(recv_sizes)
-    bufs = [torch.empty(n, dtype=torch.uint8, device=transport) for n in recv_sizes]
-    ops = [dist.P2POp(dist.isend, torch.cat(views), r)
-           for r, views in enumerate(sends) if send_sizes[r]]
-    ops += [dist.P2POp(dist.irecv, bufs[r], r) for r in range(world) if recv_sizes[r]]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    for r, items in enumerate(recvs):
-        offset = 0
-        for k, n in items:
-            m = moves[k]
-            piece = bufs[r][offset : offset + n]
-            device = torch.device(m.device)
-            # a tensor of its own, so that the dtype view starts aligned
-            piece = piece.to(device) if piece.device != device else piece.clone()
-            out[k] = piece.view(m.dtype).reshape(m.shape)
-            offset += n
-    return out
 
 
 def replicate(items, ranks, device, dtype):

@@ -9,6 +9,7 @@
 import functools
 
 from .errors import SPYError, SPYTypeError, SPYValueError
+from .profiling import span
 from .tools import StructDict
 
 __all__ = ["unwrap_cfg", "unwrap_select", "detect_parallel_client"]
@@ -26,68 +27,71 @@ def unwrap_cfg(func):
     Reference kwarg_decorators.py:32-299.
     """
 
+    name = "spt." + func.__name__  # the frontend's span (shared/profiling.py)
+
     @functools.wraps(func)
     def wrapper_cfg(*args, **kwargs):
-        cfg = None
-        args = list(args)
+        with span(name):
+            cfg = None
+            args = list(args)
 
-        # cfg passed as kwarg
-        if "cfg" in kwargs:
-            cfg = kwargs.pop("cfg")
-            if not isinstance(cfg, dict):
-                raise SPYTypeError(cfg, varname="cfg", expected="dict or StructDict")
+            # cfg passed as kwarg
+            if "cfg" in kwargs:
+                cfg = kwargs.pop("cfg")
+                if not isinstance(cfg, dict):
+                    raise SPYTypeError(cfg, varname="cfg", expected="dict or StructDict")
 
-        # cfg passed positionally (either slot); more than one dict — or a
-        # positional dict on top of a cfg keyword — is ambiguous
-        dict_pos = [k for k, a in enumerate(args)
-                    if isinstance(a, dict) and not hasattr(a, "dimord")]
-        if dict_pos and (cfg is not None or len(dict_pos) > 1):
-            raise SPYValueError(
-                legal="single `cfg` argument", varname="cfg", actual="two cfg dicts"
-            )
-        if dict_pos:
-            cfg = args.pop(dict_pos[0])
+            # cfg passed positionally (either slot); more than one dict — or a
+            # positional dict on top of a cfg keyword — is ambiguous
+            dict_pos = [k for k, a in enumerate(args)
+                        if isinstance(a, dict) and not hasattr(a, "dimord")]
+            if dict_pos and (cfg is not None or len(dict_pos) > 1):
+                raise SPYValueError(
+                    legal="single `cfg` argument", varname="cfg", actual="two cfg dicts"
+                )
+            if dict_pos:
+                cfg = args.pop(dict_pos[0])
 
-        if cfg is not None:
-            cfg = StructDict(cfg)
+            if cfg is not None:
+                cfg = StructDict(cfg)
 
-            # replay nested out.cfg: {funcname: {...}, otherfunc: {...}}
-            if func.__name__ in cfg and isinstance(cfg[func.__name__], dict):
-                cfg = StructDict(cfg[func.__name__])
+                # replay nested out.cfg: {funcname: {...}, otherfunc: {...}}
+                if func.__name__ in cfg and isinstance(cfg[func.__name__], dict):
+                    cfg = StructDict(cfg[func.__name__])
 
-            cfg = StructDict({k: v for k, v in cfg.items()})
+                cfg = StructDict({k: v for k, v in cfg.items()})
 
-            # linguistic booleans
-            for key, value in list(cfg.items()):
-                if isinstance(value, str):
-                    if value.lower() == "yes":
-                        cfg[key] = True
-                    elif value.lower() == "no":
-                        cfg[key] = False
+                # linguistic booleans
+                for key, value in list(cfg.items()):
+                    if isinstance(value, str):
+                        if value.lower() == "yes":
+                            cfg[key] = True
+                        elif value.lower() == "no":
+                            cfg[key] = False
 
-            # data may live inside cfg
-            data_from_cfg = None
-            for dkey in ("data", "dataset"):
-                if dkey in cfg:
-                    data_from_cfg = cfg.pop(dkey)
-            if data_from_cfg is not None:
-                if args:
-                    raise SPYValueError(
-                        legal="data passed either positionally or via cfg, not both",
-                        varname="cfg.data",
-                    )
-                args = [data_from_cfg]
+                # data may live inside cfg
+                data_from_cfg = None
+                for dkey in ("data", "dataset"):
+                    if dkey in cfg:
+                        data_from_cfg = cfg.pop(dkey)
+                if data_from_cfg is not None:
+                    if args:
+                        raise SPYValueError(
+                            legal="data passed either positionally or via cfg, not both",
+                            varname="cfg.data",
+                        )
+                    args = [data_from_cfg]
 
-            for key, value in cfg.items():
-                if key in kwargs:
-                    raise SPYValueError(
-                        legal="non-conflicting cfg entries",
-                        varname=key,
-                        actual="set in both cfg and kwargs",
-                    )
-                kwargs[key] = value
+                for key, value in cfg.items():
+                    if key in kwargs:
+                        raise SPYValueError(
+                            legal="non-conflicting cfg entries",
+                            varname=key,
+                            actual="set in both cfg and kwargs",
+                        )
+                    kwargs[key] = value
 
-        return func(*args, **kwargs)
+            return func(*args, **kwargs)
 
     _amend_docstring_and_signature(func, wrapper_cfg)
     return wrapper_cfg

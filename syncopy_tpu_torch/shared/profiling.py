@@ -1,13 +1,19 @@
 # -*- coding: utf-8 -*-
 #
 # Profiling / tracing facilities: the JAX package's profile() on
-# torch.profiler, and its wall-clock Timer.
+# torch.profiler, the port's spans inside it, and its wall-clock Timer.
 
 import contextlib
 import os
 import time
 
-__all__ = ["profile", "Timer"]
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+__all__ = ["profile", "span", "Timer"]
+
+#: what span() returns while no profiler runs (nullcontext is reentrant)
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -22,9 +28,46 @@ def profile(logdir=None):
 
     View it in ui.perfetto.dev or chrome://tracing. Defaults to
     ``$SPYDIR/traces``. Yields `logdir`.
-    """
-    import torch
 
+    Besides torch's own ops and the card's kernels and copies, the trace
+    holds the port's spans (:func:`span`, category ``user_annotation``),
+    on the clock the device records share:
+
+    ``spt.<frontend>``
+        a whole frontend call (``spt.connectivityanalysis``,
+        ``spt.freqanalysis``, ...), from its argument parsing to its
+        result;
+    ``spt.engine.initialize``
+        the engine's plan: the selection, per-trial shapes, buckets and
+        the host gather's plan;
+    ``spt.engine.store_key``
+        the device trial store's key (the selection's fingerprint) and its
+        lookup, once per bucket on the host route;
+    ``spt.engine.gather``, ``spt.engine.upload``
+        one block's host gather and pad, then its host-to-device copy;
+    ``spt.engine.resident``
+        one chunk's rows taken from a device-resident input;
+    ``spt.engine.dispatch``
+        the launches of one trial shard's batch (spectra, kernels) and its
+        auxiliary uploads;
+    ``spt.engine.post``
+        the fused normalization of a trial average;
+    ``spt.engine.readback``
+        a result's copy to the host, the host's wait for the queued device
+        work included;
+    ``spt.engine.finalize``
+        the output's info, log, metadata and seal;
+    ``spt.mesh.share_from``, ``spt.mesh.exchange``
+        the host side of a transfer between ranks, the wait for the peers
+        included.
+
+    Read an idle stretch of the card's row by the innermost span or torch
+    op open above it on the calling thread: under
+    ``spt.engine.initialize`` the card waits for the engine's plan, under
+    ``spt.engine.finalize`` for the output's metadata, under
+    ``spt.mesh.share_from`` for a peer rank, and under a bare
+    ``spt.<frontend>`` for the frontend's own Python.
+    """
     if logdir is None:
         spydir = os.environ.get("SPYDIR", os.path.join(os.path.expanduser("~"), ".spy"))
         logdir = os.path.join(spydir, "traces")
@@ -40,6 +83,21 @@ def profile(logdir=None):
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             logdir, "trace_{}_{}.json".format(os.getpid(), time.time_ns())))
+
+
+def span(name):
+    """
+    A context manager that marks its block as `name` in a running
+    ``torch.profiler`` trace (:func:`profile`, or any other): a
+    ``record_function`` span, nested under the span open around it on the
+    same thread. With no profiler running it costs one read of
+    ``torch.autograd.profiler._is_profiler_enabled``: no
+    ``record_function`` is made and no time is taken. Spans are kept by
+    the profiler and written when it stops.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class Timer:
