@@ -115,6 +115,22 @@ def _require_latency_coverage(data, trial_ids, lat):
     )
 
 
+def _whole_trials(trl_old, trial_ids):
+    """The rows ``[0, length, offset, extra...]`` of the selected whole
+    trials, before re-stacking: what the per-trial rows of
+    :meth:`Selector._compute_trialdefinition` stack to with every time
+    indexer ``slice(None)``, in one fancy index (their dtype taken from
+    the first row built the per-trial way)."""
+    sub = trl_old[np.asarray(trial_ids, dtype=np.intp)]
+    lens = (sub[:, 1] - sub[:, 0]).astype(np.int64)
+    first = np.concatenate([[0, int(lens[0]), sub[0, 2] + 0], sub[0, 3:]])
+    trl = np.empty(sub.shape, dtype=first.dtype)
+    trl[:, 0] = 0
+    trl[:, 1] = lens
+    trl[:, 2:] = sub[:, 2:]
+    return trl
+
+
 class Selector:
     """
     In-place selection descriptor attached to a data object.
@@ -122,6 +138,9 @@ class Selector:
     After construction, per-dimension indexers are available as properties
     (`channel`, `freq`, `taper`, ...; `time` and `unit`/`eventid` are
     per-trial lists). ``selector.trial_ids`` lists the selected trials.
+    ``time_trivial`` says that every time indexer is ``slice(None)``
+    (continuous data, no latency window): the engine then plans from
+    arrays instead of per trial.
     """
 
     def __init__(self, data, select):
@@ -235,6 +254,7 @@ class Selector:
     def _select_latency(self, data):
         """Per-trial time-axis indexers from a [lo, hi] latency window."""
         self.time = None
+        self.time_trivial = False
         self.latency = self.select.get("latency")
         if "time" not in data.dimord:
             if self.latency is not None and "sample" not in data.dimord:
@@ -250,11 +270,14 @@ class Selector:
             from ..shared.latency import get_analysis_window
 
             lat = list(get_analysis_window(data, lat))
+        if lat is None or (isinstance(lat, str) and lat == "all"):
+            # no window: every trial whole, which the engine plans from
+            # arrays instead of per trial
+            self.time = [slice(None)] * len(self.trial_ids)
+            self.time_trivial = True
+            return
         for tid in self.trial_ids:
             n_samp = int(data.sampleinfo[tid, 1] - data.sampleinfo[tid, 0])
-            if lat is None or (isinstance(lat, str) and lat == "all"):
-                self.time.append(slice(None))
-                continue
             lat_arr = np.atleast_1d(np.asarray(lat, dtype=float))
             if lat_arr.size != 2 or lat_arr[0] > lat_arr[1]:
                 raise SPYValueError(
@@ -340,38 +363,41 @@ class Selector:
     def _compute_trialdefinition(self, data):
         """Selected trialdefinition (shifted for latency windows)."""
         trl_old = data.trialdefinition
-        rows = []
         is_continuous = "time" in data.dimord
-        for k, tid in enumerate(self.trial_ids):
-            start, stop, offset = trl_old[tid, 0], trl_old[tid, 1], trl_old[tid, 2]
-            extra = trl_old[tid, 3:]
-            if is_continuous and self.time is not None:
-                tsel = self.time[k]
-                n_samp = int(stop - start)
-                if isinstance(tsel, slice):
-                    t_start, t_stop, t_step = tsel.indices(n_samp)
-                    n_new = max(0, (t_stop - t_start + (t_step - 1)) // t_step)
-                    new_offset = offset + t_start
-                else:
-                    n_new = len(tsel)
-                    new_offset = offset + (tsel[0] if n_new else 0)
-                rows.append(np.concatenate([[0, n_new, new_offset], extra]))
-            elif not is_continuous and self.time is not None:
-                # discrete: keep sample bounds, rows are filtered
-                rows.append(np.concatenate([[start, stop, offset], extra]))
-            else:
-                rows.append(np.concatenate([[start, stop, offset], extra]))
-        if rows:
-            trl = np.vstack(rows)
-            if is_continuous:
-                # re-stack cumulative sample counts
-                lens = trl[:, 1] - trl[:, 0]
-                bounds = np.cumsum(np.concatenate([[0], lens]))
-                trl[:, 0] = bounds[:-1]
-                trl[:, 1] = bounds[1:]
-            self.trialdefinition = trl
+        if self.time_trivial and self.trial_ids:
+            trl = _whole_trials(trl_old, self.trial_ids)
         else:
+            rows = []
+            for k, tid in enumerate(self.trial_ids):
+                start, stop, offset = trl_old[tid, 0], trl_old[tid, 1], trl_old[tid, 2]
+                extra = trl_old[tid, 3:]
+                if is_continuous and self.time is not None:
+                    tsel = self.time[k]
+                    n_samp = int(stop - start)
+                    if isinstance(tsel, slice):
+                        t_start, t_stop, t_step = tsel.indices(n_samp)
+                        n_new = max(0, (t_stop - t_start + (t_step - 1)) // t_step)
+                        new_offset = offset + t_start
+                    else:
+                        n_new = len(tsel)
+                        new_offset = offset + (tsel[0] if n_new else 0)
+                    rows.append(np.concatenate([[0, n_new, new_offset], extra]))
+                elif not is_continuous and self.time is not None:
+                    # discrete: keep sample bounds, rows are filtered
+                    rows.append(np.concatenate([[start, stop, offset], extra]))
+                else:
+                    rows.append(np.concatenate([[start, stop, offset], extra]))
+            trl = np.vstack(rows) if rows else None
+        if trl is None:
             self.trialdefinition = np.zeros((0, 3))
+            return
+        if is_continuous:
+            # re-stack cumulative sample counts
+            lens = trl[:, 1] - trl[:, 0]
+            bounds = np.cumsum(np.concatenate([[0], lens]))
+            trl[:, 0] = bounds[:-1]
+            trl[:, 1] = bounds[1:]
+        self.trialdefinition = trl
 
     # ------------------------------------------------------------------ #
 

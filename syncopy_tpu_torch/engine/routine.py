@@ -42,6 +42,7 @@
 # compile back-off, f16 transfer/readback and the device constant cache
 # (the remote compile's payload limit).
 
+import hashlib
 import sys
 import warnings
 
@@ -61,6 +62,7 @@ __all__ = [
     "chunk_trials",
     "clear_device_cache",
     "default_device",
+    "plan_counts",
     "set_device",
     "transfer_counts",
 ]
@@ -105,6 +107,23 @@ def transfer_counts():
 def reset_transfer_counts():
     for k in _TRANSFERS:
         _TRANSFERS[k] = 0
+
+
+#: plans made by ComputationalRoutine.initialize since the last
+#: reset_plan_counts(): "vectorized" from the trial lengths (whole trials of
+#: continuous data), "per_trial" one trial's indexers at a time (a latency
+#: window, discrete data)
+_PLANS = {"vectorized": 0, "per_trial": 0}
+
+
+def plan_counts():
+    """The engine's plans by kind, since the last :func:`reset_plan_counts`."""
+    return dict(_PLANS)
+
+
+def reset_plan_counts():
+    for k in _PLANS:
+        _PLANS[k] = 0
 
 
 def _device_cache_put(key, chunks, nbytes):
@@ -440,104 +459,88 @@ class ComputationalRoutine:
                                     actual="0")
 
             sel = self.selector
-            tsel = getattr(sel, "time", None)
-            trivial_time = tsel is None or all(t == slice(None) for t in tsel)
-            if "sample" not in data.dimord and trivial_time:
-                # without a time selection trials differ only in the stacking-dim
-                # extent: vectorize over sampleinfo instead of indexing per trial
-                si = data.sampleinfo
-                lens = (si[:, 1] - si[:, 0]).astype(np.int64)
-                taxis = data.dimord.index("time")
-                base = list(self._selected_trial_shape(data, 0))
-                shapes = []
-                for tid in sel.trial_ids:
-                    s = base.copy()
-                    s[taxis] = int(lens[tid])
-                    shapes.append(tuple(s))
-            else:
-                shapes = [self._selected_trial_shape(data, k) for k in range(n_sel)]
-
-            # bucket positions by identical shape: one chunk plan per bucket
             buckets = {}
-            for pos, shp in enumerate(shapes):
-                buckets.setdefault(shp, []).append(pos)
+            if sel.time_trivial:
+                # whole trials differ only in the stacking-dim extent: bucket
+                # the lengths in sampleinfo instead of indexing per trial
+                _PLANS["vectorized"] += 1
+                lens = np.diff(data.sampleinfo[np.asarray(sel.trial_ids, dtype=np.intp)],
+                               axis=1)[:, 0]
+                uniq, first, inverse = np.unique(lens, return_index=True, return_inverse=True)
+                # each length's positions, ascending
+                groups = np.split(np.argsort(inverse, kind="stable"),
+                                  np.cumsum(np.bincount(inverse))[:-1])
+                taxis = data.dimord.index("time")
+                shape = list(self._selected_trial_shape(data, 0))
+                for u in np.argsort(first):  # lengths in order of first appearance
+                    shape[taxis] = int(uniq[u])
+                    buckets[tuple(shape)] = groups[u].tolist()
+            else:
+                _PLANS["per_trial"] += 1
+                for pos in range(n_sel):
+                    buckets.setdefault(self._selected_trial_shape(data, pos), []).append(pos)
+            # one chunk plan per bucket of identical shape
             self.buckets = buckets
             # the input dtype, for output rules that depend on it
             self.in_dtype = np.dtype(data.data.dtype)
             self.out_per_trial_shapes = {shp: self.output_trial_shape(shp) for shp in buckets}
+            bucket_out = [oshp for oshp, _ in self.out_per_trial_shapes.values()]
             out_dtype = next(iter(self.out_per_trial_shapes.values()))[1]
 
             self._fast_plan = self._plan_fast_gather(data)
 
-            out_shapes = [self.out_per_trial_shapes[shp][0] for shp in shapes]
-            if not self.keeptrials and len(set(out_shapes)) > 1:
+            if not self.keeptrials and len(set(bucket_out)) > 1:
                 raise SPYValueError(
                     legal="identical trial shapes for trial averaging",
                     varname="keeptrials",
-                    actual="shapes {}".format(sorted(set(out_shapes))),
+                    actual="shapes {}".format(sorted(set(bucket_out))),
                 )
 
             sdim = self.out_stackingdim
-            ref_other = [s for i, s in enumerate(out_shapes[0]) if i != sdim]
-            for oshp in out_shapes[1:]:
+            ref_other = [s for i, s in enumerate(bucket_out[0]) if i != sdim]
+            for oshp in bucket_out[1:]:
                 other = [s for i, s in enumerate(oshp) if i != sdim]
                 if other != ref_other:
                     raise SPYValueError(
                         legal="matching non-stacking output dims across trials",
                         varname="output shape",
-                        actual=str(sorted(set(out_shapes))),
+                        actual=str(sorted(set(bucket_out))),
                     )
             if self.keeptrials:
-                total_stack = sum(oshp[sdim] for oshp in out_shapes)
+                total_stack = sum(oshp[sdim] * len(positions)
+                                  for oshp, positions in zip(bucket_out, buckets.values()))
             else:
-                total_stack = out_shapes[0][sdim]
-            out_total = list(out_shapes[0])
+                total_stack = bucket_out[0][sdim]
+            out_total = list(bucket_out[0])
             out_total[sdim] = total_stack
             self.outputShape = tuple(out_total)
             self.dtype = out_dtype
-            self._per_trial_out_shapes_ordered = out_shapes
+            bucket_of = np.empty(n_sel, dtype=np.intp)
+            for b, positions in enumerate(buckets.values()):
+                bucket_of[positions] = b
+            self._per_trial_out_shapes_ordered = [bucket_out[b] for b in bucket_of.tolist()]
             self.numTrials = n_sel
 
     def _plan_fast_gather(self, data):
         """
-        Vectorized host-gather plan: when the (selected) trials are plain
-        time-slices of an in-memory array with identical per-dimension
-        indexers, a whole chunk is assembled with ONE fancy gather.
+        Vectorized host-gather plan: when the (selected) trials are whole
+        time-slices of an in-memory array (or HDF5 dataset), one indexer
+        serves them all and a whole chunk is assembled with ONE fancy
+        gather. None for a time selection: each trial has its own.
         """
         from ..datatype.base_data import HDF5_DATASET
 
         sel = self.selector
-        if "sample" in data.dimord:
+        if not sel.time_trivial:
             return None
         is_hdf5 = isinstance(data.data, HDF5_DATASET)
         if not (isinstance(data.data, np.ndarray) or is_hdf5):
             return None
         if data._stackingDim != 0:
             return None
-        others_ref = None
-        starts, lens = [], []
-        for k, tid in enumerate(sel.trial_ids):
-            ind = sel.trial_indexer(data, k)
-            tind = ind[0]
-            if not (isinstance(tind, slice) and tind == slice(None)):
-                return None
-            others = tuple(
-                (o.start, o.stop, o.step) if isinstance(o, slice) else tuple(o) for o in ind[1:]
-            )
-            if others_ref is None:
-                others_ref = others
-                others_raw = ind[1:]
-            elif others != others_ref:
-                return None
-            start, stop = data.sampleinfo[tid]
-            starts.append(int(start))
-            lens.append(int(stop - start))
-        return {
-            "starts": np.asarray(starts),
-            "lens": np.asarray(lens),
-            "others": others_raw,
-            "hdf5": is_hdf5,
-        }
+        si = data.sampleinfo[np.asarray(sel.trial_ids, dtype=np.intp)]
+        return {"starts": si[:, 0], "lens": si[:, 1] - si[:, 0],
+                "others": sel.trial_indexer(data, 0)[1:], "hdf5": is_hdf5}
 
     def _gather_batch(self, data, chunk_pos):
         """Assemble the (nTrials, ...) host batch for `chunk_pos`."""
@@ -731,8 +734,17 @@ class ComputationalRoutine:
         the selection cannot be fingerprinted; the bypass is logged once
         per process."""
         sel = self.selector
+        plan = getattr(self, "_fast_plan", None)
         try:
             with np.printoptions(threshold=sys.maxsize):
+                if plan is not None:
+                    # the plan's trials share one indexer; a digest, not
+                    # hash(), so that every process derives the same key
+                    digest = hashlib.blake2b(digest_size=16)
+                    for part in (sel.trial_ids, plan["starts"], plan["lens"]):
+                        digest.update(np.ascontiguousarray(part, dtype=np.int64).tobytes())
+                    digest.update(repr(sel.trial_indexer(data, 0)).encode())
+                    return digest.hexdigest()
                 parts = [tuple(sel.trial_ids)]
                 for k in range(len(sel.trial_ids)):
                     parts.append(repr(sel.trial_indexer(data, k)))

@@ -208,3 +208,99 @@ def test_jax_in_place_write_leaves_a_stale_entry():
         assert np.allclose(np.asarray(fresh.data), 4 * np.asarray(s1.data), rtol=1e-5, atol=0)
     finally:
         jroutine.clear_device_cache()
+
+
+# ------------------------------------------------------------------------ #
+# the store key of whole trials: built from the trial ids, their starts
+# and lengths and one indexer, and alike in every process
+# ------------------------------------------------------------------------ #
+
+
+def _uploads(data, select):
+    routine.reset_transfer_counts()
+    _fa(data, select=select)
+    return routine.transfer_counts()["h2d"]
+
+
+def test_the_same_trial_subset_hits_on_a_second_call(adata):
+    assert _uploads(adata, {"trials": [3, 1, 4, 1]}) > 0
+    assert _uploads(adata, {"trials": [3, 1, 4, 1]}) == 0
+
+
+def test_another_trial_subset_of_the_same_size_misses(adata):
+    assert _uploads(adata, {"trials": [3, 1, 4]}) > 0
+    assert _uploads(adata, {"trials": [3, 1, 5]}) > 0
+    assert len(routine._DEVICE_CACHE) == 2
+
+
+def test_a_permutation_of_the_same_trials_misses(adata):
+    first = _fa(adata, select={"trials": [3, 1, 4]})
+    routine.reset_transfer_counts()
+    second = _fa(adata, select={"trials": [1, 3, 4]})
+    assert routine.transfer_counts()["h2d"] > 0 and len(routine._DEVICE_CACHE) == 2
+    assert np.array_equal(np.asarray(first.data)[[1, 0, 2]], np.asarray(second.data))
+
+
+def test_another_channel_list_misses(adata):
+    first = _fa(adata, select={"channel": [0, 3, 1]})
+    routine.reset_transfer_counts()
+    second = _fa(adata, select={"channel": [0, 1, 3]})
+    assert routine.transfer_counts()["h2d"] > 0 and len(routine._DEVICE_CACHE) == 2
+    # float32 FFTs of another batch layout: the file's 1e-6 bar
+    want = np.asarray(first.data)[..., [0, 2, 1]]
+    assert np.abs(np.asarray(second.data) - want).max() <= 1e-6 * np.abs(want).max()
+
+
+STORE_KEYS = """
+import sys
+import torch
+import syncopy_tpu_torch as spt
+from syncopy_tpu_torch.engine import routine
+rank, world, port = map(int, sys.argv[1:4])
+spt.set_device("cpu")
+spt.init_distributed(coordinator_address="localhost:{}".format(port), num_processes=world,
+                     process_id=rank, backend="gloo", timeout=30.0)
+data = spt.synthdata.white_noise(nTrials=10, nSamples=200, nChannels=4, seed=42)
+with spt.use_mesh(spt.make_mesh()):
+    for select in (None, {"trials": [3, 1, 4, 1]}, {"channel": [0, 3, 1]}):
+        spt.freqanalysis(data, method="mtmfft", taper="hann", select=select)
+    routine.reset_transfer_counts()
+    spt.freqanalysis(data, method="mtmfft", taper="hann", select={"trials": [3, 1, 4, 1]})
+print("H2D", routine.transfer_counts()["h2d"])
+print("KEYS", sorted(repr(key[1:]) for key in routine._DEVICE_CACHE), flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_ranks_build_equal_store_keys():
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, "-c", STORE_KEYS, str(r), "2", port],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=repo,
+                              env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=90)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+        lines.append([ln for ln in out.splitlines() if ln.startswith(("H2D", "KEYS"))])
+    # the second call of a selection hits on both ranks, and the three
+    # selections' keys are the same in both processes
+    assert lines[0][0] == lines[1][0] == "H2D 0"
+    assert lines[0][1] == lines[1][1] and lines[0][1].count("(") >= 3
