@@ -26,6 +26,7 @@ from ..ops.connectivity import (
     wilson_sf_twosided,
 )
 from ..shared.errors import SPYValueError
+from ..shared.profiling import span
 
 __all__ = ["PPCReduction", "NormalizeCrossSpectra", "NormalizeCrossCov", "GrangerCausality"]
 
@@ -34,6 +35,24 @@ __all__ = ["PPCReduction", "NormalizeCrossSpectra", "NormalizeCrossCov", "Grange
 #: many bytes, counting _WILSON_TENSORS complex128 (F, N, N) tensors each
 _REPLICATE_BYTES = 4 * 1024**3
 _WILSON_TENSORS = 16
+
+
+def _factorize(CSDreg, cfg):
+    """Wilson's factorization of the regularized ``(..., F, N, N)`` CSDs on
+    the device: the one-sided iteration (:func:`wilson_sf`), then the
+    two-sided one of the host path (:func:`wilson_sf_twosided`) for each
+    CSD the first leaves unconverged, in its place. The demeaned DC bin's
+    rounding noise can make one form diverge where the other converges (1
+    of 200 jackknife replicates of the 16-channel AR(2) network in
+    chip_smoke's phase 10; some 1000-trial, 128-channel AR(2) datasets).
+    Returns ``(Hfunc, Sigma, converged, err)``."""
+    H, Sigma, conv, err, _ = wilson_sf(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+    retry = ~conv
+    if bool(retry.any()):
+        H2, Sigma2, c2, e2, _ = wilson_sf_twosided(CSDreg[retry], nIter=cfg["nIter"],
+                                                   rtol=cfg["rtol"])
+        H[retry], Sigma[retry], conv[retry], err[retry] = H2, Sigma2, c2, e2
+    return H, Sigma, conv, err
 
 
 class PPCReduction(ComputationalRoutine):
@@ -207,30 +226,23 @@ class GrangerCausality(_AVRoutine):
         alone; each factorization starts cold (a warm start from another
         replicate's factor freezes a phase error no error test sees). A
         replicate the one-sided iteration leaves unconverged is factorized
-        again on the device by the two-sided one of the host path
-        (:func:`wilson_sf_twosided`): the demeaned DC bin's rounding noise
-        can make one form diverge where the other converges (1 of 200
-        replicates of the 16-channel AR(2) network in chip_smoke's phase
-        10, on the CPU and on the card)."""
+        again on the device by the two-sided one (:func:`_factorize`)."""
         if batch.shape[0] == 1 or batch.shape[1] != 1:
             return super().process_batch(batch, **cfg)
         rows = batch[:, 0]  # (R, F, N, N), complex64 until its group runs
         R, F, N = rows.shape[0], rows.shape[1], rows.shape[-1]
         group = max(1, _REPLICATE_BYTES // (_WILSON_TENSORS * F * N * N * 16))
-        mean_csd = sum(rows[g0 : g0 + group].to(torch.complex128).sum(dim=0)
-                       for g0 in range(0, R, group)) / R
-        psd_shift, eps, ini_cn = csd_reg_params(mean_csd, cond_max=cfg["cond_max"],
-                                                eps_max=1e-1)
+        with span("spt.granger.regularize"):
+            mean_csd = sum(rows[g0 : g0 + group].to(torch.complex128).sum(dim=0)
+                           for g0 in range(0, R, group)) / R
+            psd_shift, eps, ini_cn = csd_reg_params(mean_csd, cond_max=cfg["cond_max"],
+                                                    eps_max=1e-1)
         G, conv, err = [], [], []
         for g0 in range(0, R, group):
-            CSDreg = psd_topup(apply_csd_reg(rows[g0 : g0 + group].to(torch.complex128),
-                                             psd_shift, eps, eps_max=1e-1))
-            H, Sigma, c, e, _ = wilson_sf(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
-            retry = ~c
-            if bool(retry.any()):
-                H2, Sigma2, c2, e2, _ = wilson_sf_twosided(CSDreg[retry], nIter=cfg["nIter"],
-                                                           rtol=cfg["rtol"])
-                H[retry], Sigma[retry], c[retry], e[retry] = H2, Sigma2, c2, e2
+            with span("spt.granger.regularize"):
+                CSDreg = psd_topup(apply_csd_reg(rows[g0 : g0 + group].to(torch.complex128),
+                                                 psd_shift, eps, eps_max=1e-1))
+            H, Sigma, c, e = _factorize(CSDreg, cfg)
             G.append(granger(CSDreg, H, Sigma).to(torch.float32))
             conv.append(c)
             err.append(e)
@@ -244,12 +256,13 @@ class GrangerCausality(_AVRoutine):
 
     def process_single_trial(self, trial, **cfg):
         """One averaged CSD ``(nTime, F, N, N)``: every window (one unless
-        the input is time-resolved) is factorized on its own, batched;
-        the run converged only if every window did, and the diagnostics
-        are the windows' maxima."""
+        the input is time-resolved) is factorized on its own, batched, a
+        window the one-sided iteration leaves unconverged again by the
+        two-sided one (:func:`_factorize`); the run converged only if
+        every window did, and the diagnostics are the windows' maxima."""
         CSDreg, factor, ini_cn = regularize_csd(
             trial.to(torch.complex128), cond_max=cfg["cond_max"], eps_max=1e-1)
-        H, Sigma, conv, err, _ = wilson_sf(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+        H, Sigma, conv, err = _factorize(CSDreg, cfg)
         info = {
             "converged": conv.all(),
             "max rel. err": err.amax(),

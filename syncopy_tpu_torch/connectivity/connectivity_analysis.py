@@ -46,6 +46,7 @@ from ..shared.input_processors import (
 )
 from ..shared.kwarg_decorators import detect_parallel_client, unwrap_cfg, unwrap_select
 from ..shared.parsers import data_parser, scalar_parser, sequence_parser
+from ..shared.profiling import spanned
 from ..shared.tools import best_match, get_defaults, get_frontend_cfg
 
 __all__ = ["connectivityanalysis"]
@@ -517,8 +518,10 @@ def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict,
     """The AV stage of Granger on the averaged CSD `st_out` (reference
     connectivity_analysis.py:276-277, :379-432, :466-476): pairwise with
     `channelcmb`; else the host float64 path if the rank gate finds the
-    CSD singular by construction; else the device factorization, retried
-    on the host if it did not converge. Every host route warns."""
+    CSD singular by construction; else the device factorization (each
+    window the one-sided iteration leaves unconverged retried two-sided on
+    the device), retried on the host if both forms failed. Every host
+    route warns."""
     from .AV_compRoutines import GrangerCausality
 
     av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
@@ -586,6 +589,7 @@ def _granger_out(st_avg, G, channel_i, channel_j, info, log):
     return out
 
 
+@spanned("spt.granger.host")
 def _granger_host_full(st_avg, av_routine):
     """Full-matrix Granger with the host float64 factorization, one per
     sliding window of time-resolved input."""
@@ -610,6 +614,7 @@ def _granger_host_full(st_avg, av_routine):
     }, "computed Granger causality (host float64 factorization)")
 
 
+@spanned("spt.granger.host")
 def _granger_host_replicates(replicates, av_routine):
     """Host float64 Granger of every jackknife replicate: the retry when a
     device factorization of the leave-one-out CSDs did not converge

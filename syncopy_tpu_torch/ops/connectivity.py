@@ -29,6 +29,7 @@
 import numpy as np
 import torch
 
+from ..shared.profiling import span, spanned
 from .spectral import detrend, spectral_convert
 
 __all__ = ["spectral_dyadic_product", "normalize_csd", "normalize_ccov",
@@ -38,7 +39,7 @@ __all__ = ["spectral_dyadic_product", "normalize_csd", "normalize_ccov",
            "psd_topup", "regularize_csd", "wilson_sf", "wilson_sf_twosided", "granger",
            "wilson_sf_sharded", "granger_sharded",
            "wilson_sf_host",
-           "regularize_csd_host", "granger_host"]
+           "regularize_csd_host", "granger_host", "wilson_counts", "reset_wilson_counts"]
 
 
 def spectral_dyadic_product(spec, send_idx=None, rec_idx=None):
@@ -238,6 +239,24 @@ def csd_sum_compensated(spec, sub=16):
 #: package's threshold, set from TPU timings
 _FAST_REG_MIN_CHAN = 96
 
+#: Wilson factorizations since the last reset_wilson_counts(): the (F, N, N)
+#: CSDs factorized by wilson_sf ("one_sided"), wilson_sf_twosided
+#: ("two_sided") and wilson_sf_host ("host"), and the steps of the two
+#: device loops (a batched loop's step counts once)
+_WILSON = {"one_sided": 0, "two_sided": 0, "host": 0, "one_sided_steps": 0,
+           "two_sided_steps": 0}
+
+
+def wilson_counts():
+    """The Wilson factorizations and device steps, by form, since the last
+    :func:`reset_wilson_counts`."""
+    return dict(_WILSON)
+
+
+def reset_wilson_counts():
+    for k in _WILSON:
+        _WILSON[k] = 0
+
 
 def _real_dtype(cdtype):
     return torch.float64 if cdtype == torch.complex128 else torch.float32
@@ -370,6 +389,7 @@ def psd_topup(CSDreg, rel_lift=3e-6, max_rounds=3):
     return CSDreg
 
 
+@spanned("spt.granger.regularize")
 def regularize_csd(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
     """
     Condition-number loading of ``(..., F, N, N)`` CSDs: add the smallest
@@ -397,6 +417,7 @@ def _plus_operator_onesided(g, M):
     return torch.fft.rfft(beta, dim=1), g0
 
 
+@spanned("spt.granger.wilson")
 def wilson_sf(CSD, nIter=100, rtol=1e-6):
     """
     Wilson's spectral matrix factorization ``CSD = psi psi^H`` of
@@ -448,24 +469,29 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
         return (err >= rtol) & (it < nIter) & ~(plateau | blown)
 
     active = running(err, prev_err, best_err, it)
-    while bool(active.any()):
-        g = _inv_nan(psi) @ U
-        gI = g @ g.mH + eye
-        gplus, gplus_0 = _plus_operator_onesided(gI, M)
-        S = torch.triu(gplus_0)
-        S = S - S.mH
-        psi_new = psi @ (gplus + S[:, None])
-        psi0_new = psi0 @ (gplus_0 + S)
-        rel = (CSD - psi_new @ psi_new.mH).abs() / absCSD
-        new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
-        step = active[:, None, None]
-        psi = torch.where(step[..., None], psi_new, psi)
-        psi0 = torch.where(step, psi0_new, psi0)
-        prev_err = torch.where(active, err, prev_err)
-        err = torch.where(active, new_err, err)
-        best_err = torch.where(active, torch.minimum(best_err, new_err), best_err)
-        it = it + active
-        active = running(err, prev_err, best_err, it)
+    go = bool(active.any())
+    while go:
+        with span("spt.granger.wilson_step"):
+            g = _inv_nan(psi) @ U
+            gI = g @ g.mH + eye
+            gplus, gplus_0 = _plus_operator_onesided(gI, M)
+            S = torch.triu(gplus_0)
+            S = S - S.mH
+            psi_new = psi @ (gplus + S[:, None])
+            psi0_new = psi0 @ (gplus_0 + S)
+            rel = (CSD - psi_new @ psi_new.mH).abs() / absCSD
+            new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
+            step = active[:, None, None]
+            psi = torch.where(step[..., None], psi_new, psi)
+            psi0 = torch.where(step, psi0_new, psi0)
+            prev_err = torch.where(active, err, prev_err)
+            err = torch.where(active, new_err, err)
+            best_err = torch.where(active, torch.minimum(best_err, new_err), best_err)
+            it = it + active
+            active = running(err, prev_err, best_err, it)
+            go = bool(active.any())
+        _WILSON["one_sided_steps"] += 1
+    _WILSON["one_sided"] += B
 
     Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
     Hfunc = psi @ _inv_nan(psi0)[:, None]
@@ -705,6 +731,7 @@ def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_m
     return G, info
 
 
+@spanned("spt.granger.wilson_twosided")
 def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
     """
     :func:`wilson_sf_host`'s iteration on the device, batched over the
@@ -744,28 +771,33 @@ def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
     err, prev_err = inf, inf
     it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
     active = torch.ones(B, dtype=torch.bool, device=CSD.device)
-    while bool(active.any()):
-        g = _inv_nan(psi) @ U
-        g = g @ g.mH + eye
-        beta = torch.fft.ifft(g, dim=1).real.to(CSD.dtype)
-        beta[:, 0] *= 0.5
-        g0 = beta[:, 0].clone()
-        beta[:, M // 2] *= 0.5
-        beta[:, M // 2 + 1 :] = 0
-        S = torch.triu(g0)
-        S = S - S.mH
-        psi_new = psi @ (torch.fft.fft(beta, dim=1) + S[:, None])
-        psi0_new = psi0 @ (g0 + S)
-        rel = (full - psi_new @ psi_new.mH).abs() / absfull
-        new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
-        step = active[:, None, None]
-        psi = torch.where(step[..., None], psi_new, psi)
-        psi0 = torch.where(step, psi0_new, psi0)
-        prev_err = torch.where(active, err, prev_err)
-        err = torch.where(active, new_err, err)
-        it = it + active
-        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
-        active = active & (err >= rtol) & (it < nIter) & ~plateau & ~torch.isnan(err)
+    go = bool(active.any())
+    while go:
+        with span("spt.granger.wilson_step"):
+            g = _inv_nan(psi) @ U
+            g = g @ g.mH + eye
+            beta = torch.fft.ifft(g, dim=1).real.to(CSD.dtype)
+            beta[:, 0] *= 0.5
+            g0 = beta[:, 0].clone()
+            beta[:, M // 2] *= 0.5
+            beta[:, M // 2 + 1 :] = 0
+            S = torch.triu(g0)
+            S = S - S.mH
+            psi_new = psi @ (torch.fft.fft(beta, dim=1) + S[:, None])
+            psi0_new = psi0 @ (g0 + S)
+            rel = (full - psi_new @ psi_new.mH).abs() / absfull
+            new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
+            step = active[:, None, None]
+            psi = torch.where(step[..., None], psi_new, psi)
+            psi0 = torch.where(step, psi0_new, psi0)
+            prev_err = torch.where(active, err, prev_err)
+            err = torch.where(active, new_err, err)
+            it = it + active
+            plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
+            active = active & (err >= rtol) & (it < nIter) & ~plateau & ~torch.isnan(err)
+            go = bool(active.any())
+        _WILSON["two_sided_steps"] += 1
+    _WILSON["two_sided"] += B
 
     Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
     Hfunc = (psi @ _inv_nan(psi0)[:, None])[:, :F]
@@ -773,6 +805,7 @@ def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
             (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
 
 
+@spanned("spt.granger.formula")
 def granger(CSD, Hfunc, Sigma):
     """
     Pairwise Granger-Geweke causality, Eq. 8 of Dhamala et al. 2008
@@ -803,6 +836,7 @@ def wilson_sf_host(CSD, nIter=100, rtol=1e-6):
     algorithm as :func:`wilson_sf`, used where the device route is gated
     off or did not converge.
     """
+    _WILSON["host"] += 1
     CSD = np.asarray(CSD, dtype=np.complex128)
     CSD = (CSD + np.conj(np.swapaxes(CSD, 1, 2))) / 2
     nFreq, N = CSD.shape[0], CSD.shape[1]

@@ -4,13 +4,14 @@
 # torch.profiler, the port's spans inside it, and its wall-clock Timer.
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["profile", "span", "Timer"]
+__all__ = ["profile", "span", "spanned", "Timer"]
 
 #: what span() returns while no profiler runs (nullcontext is reentrant)
 _OFF = contextlib.nullcontext()
@@ -59,7 +60,22 @@ def profile(logdir=None):
         the output's info, log, metadata and seal;
     ``spt.mesh.share_from``, ``spt.mesh.exchange``
         the host side of a transfer between ranks, the wait for the peers
-        included.
+        included;
+    ``spt.granger.regularize``
+        Granger's CSD regularization (the condition-number loading), of
+        one CSD or shared by jackknife replicates;
+    ``spt.granger.wilson``, ``spt.granger.wilson_twosided``
+        one batched Wilson factorization on the device, one-sided, or the
+        two-sided retry of what the one-sided form left unconverged;
+    ``spt.granger.wilson_step``
+        one step of either Wilson loop: its launches and its convergence
+        test, which waits for them;
+    ``spt.granger.formula``
+        the Granger-Geweke formula on the factors;
+    ``spt.granger.host``
+        the host float64 Granger path (regularization, Wilson and the
+        formula in numpy), where the device route is gated off or both of
+        its forms failed.
 
     Read an idle stretch of the card's row by the innermost span or torch
     op open above it on the calling thread: under
@@ -98,6 +114,20 @@ def span(name):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return torch.profiler.record_function(name)
+
+
+def spanned(name):
+    """Decorate a function so that each of its calls runs inside
+    :func:`span` `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 class Timer:

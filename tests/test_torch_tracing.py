@@ -4,8 +4,10 @@
 # every frontend call leaves the engine's stages nested under its
 # spt.<frontend> span in the Chrome trace, a call served from the trial
 # store leaves no gather, the count of spans per call does not grow with
-# the trials, a trial shard dispatches under one span of its own, and the
-# mesh's transfers between ranks are spanned.
+# the trials, a trial shard dispatches under one span of its own, the
+# mesh's transfers between ranks are spanned, and a Granger call's
+# regularization, Wilson factorizations, steps and formula are spanned
+# inside it, one step span per step that wilson_counts() counts.
 
 import glob
 import json
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 import syncopy_tpu_torch as spt
+from syncopy_tpu_torch.connectivity import AV_compRoutines as pav
 from syncopy_tpu_torch.engine import routine
+from syncopy_tpu_torch.ops import connectivity as pops
 from syncopy_tpu_torch.parallel import mesh as pmesh
 from syncopy_tpu_torch.shared import profiling
 from syncopy_tpu_torch.shared.profiling import span
@@ -170,3 +174,61 @@ def test_the_mesh_transfers_are_spanned(tmp_path):
         names = [e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"]
     assert names.count("spt.mesh.share_from") == 1 and names.count("spt.mesh.exchange") == 1
+
+
+def _inside(spans, outer, inner):
+    """Whether every `inner` span lies within some `outer` span."""
+    outs = [(s, e) for s, e, name, _ in spans if name == outer]
+    return all(any(s0 <= s and e <= e0 for s0, e0 in outs)
+               for s, e, name, _ in spans if name == inner)
+
+
+@pytest.mark.parametrize("retry", [False, True])
+def test_granger_spans_nest_and_count_the_steps(tmp_path, monkeypatch, retry):
+    """A Granger call: its regularization, Wilson and formula spans nest
+    under spt.connectivityanalysis, each step under its factorization, one
+    step span per step counted; with the one-sided form reporting the CSD
+    unconverged, the two-sided retry and its steps as well."""
+    if retry:
+        real = pops.wilson_sf
+
+        def unconverged(CSD, **kw):
+            H, Sigma, conv, err, it = real(CSD, **kw)
+            return H, Sigma, torch.zeros_like(conv), err, it
+
+        monkeypatch.setattr(pav, "wilson_sf", unconverged)
+    adata = _adata(40)
+    pops.reset_wilson_counts()
+    (spans,) = _traced(tmp_path, lambda: spt.connectivityanalysis(adata, method="granger"))
+    names = _names(spans)
+    counts = pops.wilson_counts()
+    assert spans[0][2] == "spt.connectivityanalysis" and spans[0][3] == 0
+    assert all(depth >= 1 for _, _, _, depth in spans[1:])
+    for name in ("spt.granger.regularize", "spt.granger.wilson", "spt.granger.formula"):
+        assert names.count(name) == 1, name
+    assert names.count("spt.granger.wilson_twosided") == int(retry) == counts["two_sided"]
+    assert names.count("spt.granger.wilson_step") == (counts["one_sided_steps"]
+                                                      + counts["two_sided_steps"])
+    assert counts["one_sided_steps"] > 0 and (counts["two_sided_steps"] > 0) == retry
+    steps = [sp for sp in spans if sp[2] == "spt.granger.wilson_step"]
+    assert all(any(s0 <= s and e <= e0 for s0, e0, name, _ in spans
+                   if name in ("spt.granger.wilson", "spt.granger.wilson_twosided"))
+               for s, e, _, _ in steps)
+    assert "spt.granger.host" not in names and counts["host"] == 0
+
+
+def test_the_host_path_is_spanned(tmp_path, monkeypatch):
+    """An unattainable rtol: the host float64 retry runs under its span."""
+    orig = pav.GrangerCausality.__init__
+
+    def unattainable(self, rtol=5e-6, nIter=100, cond_max=1e4):
+        orig(self, rtol=1e-300, nIter=2, cond_max=cond_max)
+
+    monkeypatch.setattr(pav.GrangerCausality, "__init__", unattainable)
+    adata = _adata(40)
+    pops.reset_wilson_counts()
+    with pytest.warns(RuntimeWarning, match="retrying with the host float64"):
+        (spans,) = _traced(tmp_path, lambda: spt.connectivityanalysis(adata, method="granger"))
+    names = _names(spans)
+    assert names.count("spt.granger.host") == 1 and pops.wilson_counts()["host"] == 1
+    assert _inside(spans, "spt.connectivityanalysis", "spt.granger.host")
