@@ -9,7 +9,7 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA card must be present; prints its name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-2. build: compiles the three CUDA libraries from csrc/ (four kernels) in
+2. build: compiles the four CUDA libraries from csrc/ (five kernels) in
    parallel, one nvcc each, and prints the seconds of each;
 3. kernel: csd_accumulate_tiled on the card against its plain PyTorch
    version and a complex128 oracle at seven shapes, incl. NaN padding
@@ -41,9 +41,15 @@ Phases, each of which raises on failure (non-zero exit):
    converge with max rel. err < 5e-6, show the drive at the 200 Hz peak
    and match, within 1e-5, the float64 two-sided factorization of its own
    CSD (the JAX package's host path, transcribed into torch on the card).
-   Its CSD is held against an independent float64 CSD. Prints the warm
-   wall, a stage split, both regularization routes' times, the inverse's
-   share of a Wilson step and the peak device memory; then the same at
+   Its CSD is held against an independent float64 CSD. Every Wilson step
+   launches the solve kernel (csrc/wilson_solve.cu) once and takes no
+   inv_ex (ops/connectivity.py::wilson_counts()). Prints the warm wall, a
+   stage split, both regularization routes' times and the peak device
+   memory; then the solve kernel at the call's (F, N), X = psi^-1 U with
+   psi the regularized CSD at Wilson's scale, against its plain version (inv_ex times U)
+   to 1e-9 of max|X|, two launches bitwise equal, timed beside the plain
+   version, torch.linalg.solve, its bound (FP64 operations over the
+   card's 67 TFLOP/s) and its share of a Wilson step; then all of it at
    128 channels (the Cholesky-bisection route), without the oracle;
 9. coh jackknife: connectivityanalysis(method="coh", tapsmofrq=2,
    jackknife=True) on the first 500 trials of phase 6's data, cut from
@@ -57,7 +63,8 @@ Phases, each of which raises on failure (non-zero exit):
 10. granger jackknife: connectivityanalysis(method="granger",
    jackknife=True) on 200 trials x 16 channels x 1000 samples of phase 8's
    AR(2) network, all 200 replicates (the JAX package's
-   granger_jackknife16_device row): the device route, every replicate
+   granger_jackknife16_device row): the device route, one solve kernel
+   launch a Wilson step, every replicate
    converged with max rel. err < 5e-6, four replicates (and any the
    routine had to factorize again two-sided) within 1e-5 of phase 8's
    two-sided float64 factorization of the same regularized replicate
@@ -152,10 +159,11 @@ Phases, each of which raises on failure (non-zero exit):
    mtmconvol_time_sharded (64-sample Hann windows, power),
    cwt_time_sharded (30 Morlet frequencies, 3.84 GB out), and
    granger_sharded (wilson_sf_sharded inside) on phase 8's 64-channel CSD
-   (1e-6 absolute); each prints the unsharded and the sharded wall side
+   (1e-6 absolute; one solve kernel launch per frequency block and Wilson
+   step, inv_ex never); each prints the unsharded and the sharded wall side
    by side, the cost of the split on one card; e: where more than one
    card is visible, each kernel launched on every card against its plain
-   version, and coh, ppc and the band-pass on a trial mesh over the cards
+   version (Wilson's solve at 128 channels, 1e-9), and coh, ppc and the band-pass on a trial mesh over the cards
    against the unsharded calls with both walls; else "not run: one card".
 19. multi-host (parallel/mesh.py::init_distributed,
    parallel/multihost_worker.py): two processes of the worker, started
@@ -182,14 +190,16 @@ Phases, each of which raises on failure (non-zero exit):
    predicted from the shapes and Wilson's steps (they must be equal; the
    halos are also held to this script's own count), and the mesh wall
    beside rank 0's unsharded (parallel=False) and one-process mesh walls
-   (3 calls each, in turns). No launch of the port's kernels comes from
-   the sharded routines (cuFFT, cuBLAS and cuSOLVER calls). A rank that
+   (3 calls each, in turns). No launch of the CSD, PPC or Butterworth
+   kernels comes from the sharded routines (cuFFT, cuBLAS and cuSOLVER
+   calls, and Wilson's solve kernel in its steps). A rank that
    fails or outlives its timeout fails the phase. 19e: where more than one
    card is visible, one rank per card over NCCL; else "not run: one
    card".
 Phases 9 to 16 each print their warm wall, peak device memory and peak
-host RSS, and the launch counters, which stay at 0 on phases 9 to 14:
-these paths run no CUDA kernel of the port. Phases 12 to 15 also print
+host RSS, and the launch counters, which stay at 0 on phases 9 and 11
+to 14 (phase 10 launches only Wilson's solve): these paths run no CUDA
+kernel of the port. Phases 12 to 15 also print
 trials/s, the bytes read back with their copy time, and a stage split
 (gather, pad and upload; compute; readback) replayed with a synchronize
 after each step.
@@ -206,10 +216,11 @@ read just after. The line before the last is a JSON object with each
 kernel's launches (csd_accumulate is on no path of the port: the JAX
 package calls it only from its Pallas probe), error, times and bound (the
 least time the card could take: operations over the FP32 peak, FP64 for
-the Butterworth cascade, against bytes over the HBM rate, from this run's
-shapes); the Granger path launches none of them. The launches count
-phase 6's, 7's, 15's, 16's, 17a's, 18's and 19's main paths (phase 19's
-in its ranks' processes). The last line is
+the Butterworth cascade and Wilson's solve, against bytes over the HBM
+rate, from this run's shapes); the Granger path launches only the solve
+kernel, once a Wilson step. The launches count phase 6's, 7's, 15's,
+16's, 17a's, 18's and 19's main paths (phase 19's in its ranks'
+processes), and the solve kernel's phase 8's, 10's and 18d's. The last line is
 ``{"ok": true, "device": {...}}``. TF32 stays off throughout, asserted.
 
     python3 chip_smoke.py --save-csd DIR
@@ -297,6 +308,24 @@ def ppc_bound(F, n, K, C):
     the scaled phasor into U, ~6: 30 at K = 3) against n * K complex64
     rows in and (F, C, C) complex64 out."""
     return bound((8 * K + 6) * F * n * C * (C + 1) / 2, F * n * K * C * 8 + F * C * C * 8)
+
+
+#: the H100 SXM's FP64 peak, on its tensor cores (DMMA; the FP64 pipes
+#: outside them give half)
+PEAK_FP64_TENSOR_FLOPS = 67e12
+#: bar for the Wilson solve kernel against its plain version: max|got -
+#: plain| / max|plain| (two FP64 solves of one system that round apart)
+WILSON_SOLVE_REL_TOL = 1e-9
+
+
+def wilson_solve_bound(bins, N):
+    """The Wilson solve kernel's bound: LU with partial pivoting and the
+    solve for N right-hand sides, 4/3 N^3 complex multiply-adds a bin at 8
+    FP64 operations, over the card's FP64 peak, against psi and U read and
+    X written once (complex128) over the HBM rate."""
+    t_ops = 4 / 3 * N ** 3 * 8 * bins / PEAK_FP64_TENSOR_FLOPS * 1e3
+    t_bytes = 3 * bins * N * N * 16 / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_deterministic(name, fn):
@@ -718,6 +747,7 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
         return granger_stage(st_out, *args)
 
     zero_launches()
+    pc.reset_wilson_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pca._granger = keep_csd
@@ -729,7 +759,14 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
     finally:
         pca._granger = granger_stage
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = tuple(read_launches("granger {} ch".format(n_chan)).values())
+    counts = pc.wilson_counts()
+    launches = tuple(read_launches("granger {} ch".format(n_chan),
+                                   {"wilson_solve": counts["solve_kernel"]}).values())
+    print("granger {} ch: Wilson counts {}".format(n_chan, counts))
+    if not (counts["solve_library"] == 0 and counts["solve_kernel"] > 0 and counts["solve_kernel"]
+            == counts["one_sided_steps"] + counts["two_sided_steps"]):
+        raise AssertionError("granger {} ch: not one solve kernel launch a Wilson step: {}".format(
+            n_chan, counts))
     host_route = [str(w.message) for w in caught if "host float64" in str(w.message)
                   or "did NOT converge" in str(w.message)]
     if host_route or "host float64" in out.log:
@@ -754,7 +791,8 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
         np.savez(os.path.join(save_csd, "granger_csd{}.npz".format(n_chan)), csd=seen["csd"],
                  G=G[0], **{k.replace(" ", "_").replace(".", ""): v for k, v in info.items()})
 
-    summary = {"info": info, "peak_gb": peak_gb, "csd": seen["csd"]}
+    summary = {"info": info, "peak_gb": peak_gb, "csd": seen["csd"],
+               "solve_launches": counts["solve_kernel"]}
     if oracle:
         t0 = time.perf_counter()
         port_csd = torch.from_numpy(seen["csd"]).to("cuda", torch.complex128)
@@ -812,17 +850,53 @@ def granger_phase(spt, n_chan, oracle, save_csd=None):
             routes[name] = (wall_ms(lambda: pc.csd_reg_params(csd, 1e4, 1e-1)), eps)
     finally:
         pc._FAST_REG_MIN_CHAN = saved
+    print("granger {} ch: regularization parameters by route (median of 3): {}".format(
+        n_chan, "; ".join("{} {:.3f} ms (eps {:g})".format(k, v[0], v[1])
+                          for k, v in routes.items())))
     psi = pc.regularize_csd(csd, cond_max=1e4, eps_max=1e-1)[0]
-    inv_ms = wall_ms(lambda: pc._inv_nan(psi), reps=10)
-    print("granger {} ch: regularization parameters by route (median of 3): {}; inv_ex of "
-          "({}, {}, {}) complex128 {:.3f} ms, {:.1f}% of a Wilson step".format(
-              n_chan, "; ".join("{} {:.3f} ms (eps {:g})".format(k, v[0], v[1])
-                                for k, v in routes.items()),
-              *psi.shape, inv_ms, 100 * inv_ms / (ms["Wilson"] / max(steps, 1))))
-    summary.update(wall=wall, stages=ms, steps=steps, routes=routes, inv_ms=inv_ms)
+    solve = wilson_solve_check(psi, ms["Wilson"] / max(steps, 1))
+    summary.update(wall=wall, stages=ms, steps=steps, routes=routes, solve=solve)
     del csd, psi
     torch.cuda.empty_cache()
     return summary
+
+
+def wilson_solve_check(psi, step_ms):
+    """Phase 8's solve kernel (csrc/wilson_solve.cu) at the Granger call's
+    (F, N): X = psi^-1 U, `psi` the call's regularized (F, N, N) CSD at
+    Wilson's scale (unit mean auto-power) and U drawn on the card (seed
+    N), against its plain version (inv_ex times U,
+    the port's step before the kernel) to 1e-9 of max|X|; two launches
+    bitwise equal; the kernel through its wrapper, the plain version and
+    torch.linalg.solve timed (median of 20, CUDA events) beside the bound
+    and the share of a Wilson step of `step_ms`. Returns the numbers."""
+    import torch
+
+    from syncopy_tpu_torch.ops import wilson_kernels as wk
+
+    psi = (psi / torch.diagonal(psi, dim1=-2, dim2=-1).real.mean()).contiguous()
+    F, N = psi.shape[0], psi.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    U = torch.randn(psi.shape, dtype=torch.complex128, device="cuda", generator=gen)
+    got, want = wk.wilson_solve(psi, U), wk.wilson_solve_plain(psi, U)
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and rel < WILSON_SOLVE_REL_TOL):
+        raise AssertionError("wilson_solve at ({}, {}): rel err {:.3e} >= {}".format(
+            F, N, rel, WILSON_SOLVE_REL_TOL))
+    check_deterministic("wilson_solve at ({}, {})".format(F, N), lambda: wk.wilson_solve(psi, U))
+    kernel_ms = cuda_ms(lambda: wk.wilson_solve(psi, U))
+    plain_ms = cuda_ms(lambda: wk.wilson_solve_plain(psi, U))
+    library_ms = cuda_ms(lambda: torch.linalg.solve(psi, U))
+    bound_ms, bound_by = wilson_solve_bound(F, N)
+    print("wilson_solve at ({}, {}) complex128: max abs err vs the plain version {:.3e} ({:.3e} "
+          "of max|X|); kernel {:.4f} ms ({:.1f}% of a Wilson step), plain version (inv_ex @ U) "
+          "{:.4f} ms, library (torch.linalg.solve) {:.4f} ms (median of 20, CUDA events); bound "
+          "{:.4f} ms ({}), {:.1f}% of it".format(
+              F, N, err, rel, kernel_ms, 100 * kernel_ms / step_ms, plain_ms, library_ms,
+              bound_ms, bound_by, 100 * bound_ms / kernel_ms))
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def north_star_data(n_chan=N_CHANNELS):
@@ -880,25 +954,29 @@ def zero_launches():
     from syncopy_tpu_torch.ops import csd_kernels as ck
     from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
+    from syncopy_tpu_torch.ops import wilson_kernels as wk
 
     ck.csd_accumulate_tiled.launches = 0
     ck.csd_accumulate.launches = 0
     pk.ppc_accumulate_tiled.launches = 0
     ik.sosfilt_batch.launches = 0
+    wk.wilson_solve.launches = 0
 
 
 def read_launches(name, expect=None):
-    """The four kernels' launches since zero_launches(): each must equal
+    """The five kernels' launches since zero_launches(): each must equal
     its count in `expect` and the others 0 (none may have run on the paths
-    of phases 9 to 14). Returns them."""
+    of phases 9 and 11 to 14). Returns them."""
     from syncopy_tpu_torch.ops import csd_kernels as ck
     from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
+    from syncopy_tpu_torch.ops import wilson_kernels as wk
 
     launches = {"csd_accumulate_tiled": ck.csd_accumulate_tiled.launches,
                 "csd_accumulate": ck.csd_accumulate.launches,
                 "ppc_accumulate_tiled": pk.ppc_accumulate_tiled.launches,
-                "sosfiltfilt": ik.sosfilt_batch.launches}
+                "sosfiltfilt": ik.sosfilt_batch.launches,
+                "wilson_solve": wk.wilson_solve.launches}
     print("{}: kernel launches {}".format(name, launches))
     want = dict.fromkeys(launches, 0)
     want.update(expect or {})
@@ -936,7 +1014,8 @@ def clear_store():
 def measured_call(name, fn, expect=None):
     """One checked call of `fn` with the trial store empty, the launch
     counters at 0, peak device memory and peak host RSS reset before it;
-    the launches must be those of `expect` (see read_launches). A
+    the launches must be those of `expect` (see read_launches; a callable
+    gives them after the call). A
     device-resident result is read back inside the timed call; the wall
     before that readback is printed beside it. Returns its result and
     (wall s, peak device GB, peak host GB)."""
@@ -956,7 +1035,7 @@ def measured_call(name, fn, expect=None):
         resident_wall = time.perf_counter() - t0
         n_resident = settle(res)
         wall = time.perf_counter() - t0
-    read_launches(name, expect)
+    read_launches(name, expect() if callable(expect) else expect)
     dev_gb = torch.cuda.max_memory_allocated() / 1e9
     print("{}: first call {:.3f} s{}; peak device memory {:.3f} GB; peak host RSS {:.3f} GB{}".format(
         name, wall, " (resident-only {:.3f} s, then read back)".format(resident_wall)
@@ -1103,13 +1182,21 @@ def granger_jackknife_phase(spt):
         seen["stage_s"] = time.perf_counter() - t0
 
     jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife = replicates, bias_var, stage
+    pc.reset_wilson_counts()
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             out, (first, dev_gb, host_gb) = measured_call("granger jackknife", lambda: (
-                spt.connectivityanalysis(adata, method="granger", jackknife=True)))
+                spt.connectivityanalysis(adata, method="granger", jackknife=True)),
+                lambda: {"wilson_solve": pc.wilson_counts()["solve_kernel"]})
     finally:
         jk.trial_avg_replicates, jk.bias_var, pca._attach_jackknife = originals
+    counts = pc.wilson_counts()
+    print("granger jackknife: Wilson counts {}".format(counts))
+    if not (counts["solve_library"] == 0 and counts["solve_kernel"] > 0 and counts["solve_kernel"]
+            == counts["one_sided_steps"] + counts["two_sided_steps"]):
+        raise AssertionError("granger jackknife: not one solve kernel launch a Wilson step: "
+                             "{}".format(counts))
     host_route = [str(w.message) for w in caught if "host float64" in str(w.message)
                   or "did NOT converge" in str(w.message) or "singular" in str(w.message)]
     if host_route or "host float64" in out.log or "host float64" in seen["jack_rep"].log:
@@ -1167,7 +1254,7 @@ def granger_jackknife_phase(spt):
     print("granger jackknife: {:.1f} replicates/s over the whole warm call".format(n_trials / wall))
     return {"first": first, "wall": wall, "peak_device_gb": dev_gb, "peak_host_gb": host_gb,
             "stage_s": seen["stage_s"], "g_err": g_err, "var_err": var_err,
-            "bias_err": bias_err}
+            "bias_err": bias_err, "solve_launches": counts["solve_kernel"]}
 
 
 def corr_f64(data, n_chan, group=100):
@@ -2774,13 +2861,22 @@ def mesh_phase(spt, refs, chain_coh64, chain_coh, granger_csd):
         return pc.granger(reg, H, Sigma), bool(conv), float(err)
 
     G0, conv0, err0 = granger_solo()
+    zero_launches()
+    pc.reset_wilson_counts()
     G1, info = pc.granger_sharded(csd, mesh=mesh4)
+    torch.cuda.synchronize()
+    counts = pc.wilson_counts()
+    launches["wilson_solve"] = read_launches("18d granger_sharded", {
+        "wilson_solve": counts["solve_kernel"]})["wilson_solve"]
     g_diff = (G1 - G0).abs().max().item()
     print("18d granger_sharded (phase 8's 64-channel CSD, wilson_sf_sharded inside): info {}; "
-          "unsharded converged {} err {:.3e}; max abs diff to the unsharded route "
-          "{:.3e}".format(info, conv0, err0, g_diff))
+          "unsharded converged {} err {:.3e}; max abs diff to the unsharded route {:.3e}; "
+          "Wilson counts {}".format(info, conv0, err0, g_diff, counts))
     if not (info["converged"] and conv0 and g_diff < MESH_GRANGER_ABS_TOL):
         raise AssertionError("18d: granger_sharded off by {:.3e}".format(g_diff))
+    if not (counts["solve_library"] == 0 and counts["solve_kernel"] > 0):
+        raise AssertionError("18d: wilson_sf_sharded's steps did not take the solve kernel: "
+                             "{}".format(counts))
     timed_pair("granger_sharded (64 channels)", lambda: granger_solo()[0],
                lambda: pc.granger_sharded(csd, mesh=mesh4)[0])
     del csd, G0, G1
@@ -2813,6 +2909,7 @@ def cards_phase(spt, adata, coh_ref):
     from syncopy_tpu_torch.ops import filtering as fb
     from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
+    from syncopy_tpu_torch.ops import wilson_kernels as wk
 
     n_cards = torch.cuda.device_count()
     g = torch.Generator().manual_seed(0)
@@ -2820,19 +2917,29 @@ def cards_phase(spt, adata, coh_ref):
     spec4 = torch.randn(300, 3, 101, N_CHANNELS, dtype=torch.complex64, generator=g)
     x = torch.randn(40, N_SAMPLES, N_CHANNELS, generator=g)
     sos = fb.butter_sos(4, [30.0, 100.0], "bp", FS)
+    # Wilson's solve at 128 channels, whose blocks take more shared memory
+    # than the default, an attribute set per card
+    psi = torch.randn(37, 2 * N_CHANNELS, 2 * N_CHANNELS, dtype=torch.complex128, generator=g)
+    psi += 2 * (2 * N_CHANNELS) ** 0.5 * torch.eye(2 * N_CHANNELS, dtype=torch.complex128)
+    U = torch.randn(psi.shape, dtype=torch.complex128, generator=g)
     for k in range(n_cards):
         dev = torch.device("cuda", k)
         with torch.cuda.device(0):
             got = [ck.csd_accumulate_tiled(spec.to(dev), 555),
                    pk.ppc_accumulate_tiled(spec4.to(dev), 277),
                    ik.sosfilt_batch(x.to(dev), sos)]
+            solved = wk.wilson_solve(psi.to(dev), U.to(dev))
         want = [ck.csd_accumulate_tiled_plain(spec.to(dev), 555),
                 pk.ppc_accumulate_tiled_plain(spec4.to(dev), 277),
                 ik.sosfilt_batch_plain(x.to(dev), sos, True)]
+        solved_plain = wk.wilson_solve_plain(psi.to(dev), U.to(dev))
         errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+        solve_err = ((solved - solved_plain).abs().max() / solved_plain.abs().max()).item()
         print("18e cuda:{}: csd, ppc and sosfiltfilt kernels against their plain versions "
-              "{}".format(k, ", ".join("{:.3e}".format(e) for e in errs)))
-        if any(a.device != dev for a in got) or not max(errs) < KERNEL_REL_TOL:
+              "{}; wilson_solve {:.3e}".format(k, ", ".join("{:.3e}".format(e) for e in errs),
+                                               solve_err))
+        if (any(a.device != dev for a in got + [solved]) or not max(errs) < KERNEL_REL_TOL
+                or not solve_err < WILSON_SOLVE_REL_TOL):
             raise AssertionError("18e cuda:{}: a kernel ran elsewhere or disagrees".format(k))
     mesh = spt.make_mesh()
     launches = {"csd_accumulate_tiled": 0, "ppc_accumulate_tiled": 0, "sosfiltfilt": 0}
@@ -3070,6 +3177,7 @@ def main():
     from syncopy_tpu_torch.ops import filtering as fb
     from syncopy_tpu_torch.ops import iir_kernels as ik
     from syncopy_tpu_torch.ops import ppc_kernels as pk
+    from syncopy_tpu_torch.ops import wilson_kernels as wk
     from syncopy_tpu_torch.shared.input_processors import process_taper
 
     # -- 2. build: one nvcc per library, all started together ------------- #
@@ -3079,15 +3187,16 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         builds = {name: pool.submit(timed_build, load) for name, load in [
             ("csd_accumulate (tiled + untiled)", ck.load_csd_kernel),
             ("ppc_accumulate", pk.load_ppc_kernel),
-            ("sosfilt", ik.load_sosfilt_kernel)]}
+            ("sosfilt", ik.load_sosfilt_kernel),
+            ("wilson_solve", wk.load_wilson_kernel)]}
         builds = {name: fut.result() for name, fut in builds.items()}
     for name, seconds in builds.items():
         print("build {}: {:.2f} s (nvcc, then load)".format(name, seconds))
-    print("build, all three libraries: {:.2f} s".format(time.perf_counter() - t0))
+    print("build, all four libraries: {:.2f} s".format(time.perf_counter() - t0))
     for planar, name in [(False, "csd_accumulate_tiled"), (True, "csd_accumulate")]:
         threads, blocks = ck.kernel_occupancy(planar)
         print("{}: {} threads a block, {} blocks ({} warps) resident per SM".format(
@@ -3315,7 +3424,7 @@ def main():
 
     # -- 10. granger jackknife ---------------------------------------------- #
     clear_store()
-    granger_jackknife_phase(spt)
+    granger_jack = granger_jackknife_phase(spt)
 
     # -- 11. corr ------------------------------------------------------------ #
     clear_store()
@@ -3373,6 +3482,7 @@ def main():
         print("19e one rank per card over nccl: not run: one card")
     print("phase 19: {:.1f} s".format(time.perf_counter() - t0))
 
+    solve = granger[2 * N_CHANNELS]["solve"]  # at the benchmark's (501, 128)
     print(json.dumps({"kernels": [{
         "name": "csd_accumulate_tiled",
         "route": "cuda",
@@ -3425,6 +3535,20 @@ def main():
         "bound_ms": iir["bound_ms"],
         "bound_by": iir["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "wilson_solve",
+        "route": "cuda",
+        "source": "syncopy_tpu_torch/csrc/wilson_solve.cu",
+        "replaces": "none: the JAX package leaves Wilson's inverse to XLA "
+                    "(syncopy_tpu/ops/connectivity.py, wilson_sf); no pallas_call",
+        "launches": sum(g["solve_launches"] for g in granger.values())
+        + granger_jack["solve_launches"] + mesh["wilson_solve"],
+        "max_abs_err": solve["max_abs_err"],
+        "ms": solve["ms"],
+        "plain_ms": solve["plain_ms"],
+        "bound_ms": solve["bound_ms"],
+        "bound_by": solve["bound_by"],
+        "library_ms": solve["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -31,6 +31,8 @@ import torch
 
 from ..shared.profiling import span, spanned
 from .spectral import detrend, spectral_convert
+from .wilson_kernels import (_inv_nan, _nan_where_failed, solve_route, wilson_solve,
+                             wilson_solve_plain)
 
 __all__ = ["spectral_dyadic_product", "normalize_csd", "normalize_ccov",
            "cross_covariance_trial", "cross_covariance_batch", "ccov_batch_sum",
@@ -241,14 +243,19 @@ _FAST_REG_MIN_CHAN = 96
 
 #: Wilson factorizations since the last reset_wilson_counts(): the (F, N, N)
 #: CSDs factorized by wilson_sf ("one_sided"), wilson_sf_twosided
-#: ("two_sided") and wilson_sf_host ("host"), and the steps of the two
-#: device loops (a batched loop's step counts once)
+#: ("two_sided") and wilson_sf_host ("host"), the steps of the two device
+#: loops (a batched loop's step counts once), and the steps' solves
+#: psi^-1 U by route (_solve_nan): the hand-written kernel
+#: ("solve_kernel") or inv_ex times U ("solve_library")
 _WILSON = {"one_sided": 0, "two_sided": 0, "host": 0, "one_sided_steps": 0,
-           "two_sided_steps": 0}
+           "two_sided_steps": 0, "solve_kernel": 0, "solve_library": 0}
 
 
 def wilson_counts():
-    """The Wilson factorizations and device steps, by form, since the last
+    """The Wilson factorizations and device steps, by form, and the steps'
+    solves by route (``solve_kernel``, ``solve_library``: one a step of
+    :func:`wilson_sf` or :func:`wilson_sf_twosided`, one a frequency block
+    and step of :func:`wilson_sf_sharded`), since the last
     :func:`reset_wilson_counts`."""
     return dict(_WILSON)
 
@@ -262,21 +269,21 @@ def _real_dtype(cdtype):
     return torch.float64 if cdtype == torch.complex128 else torch.float32
 
 
-def _nan_where_failed(x, info):
-    """`x` where the batched LAPACK-style `info` is 0, NaN elsewhere: a
-    failed Cholesky or inverse yields NaN, as in the JAX package, instead
-    of an exception (and of the host sync that checking it would cost)."""
-    return torch.where((info == 0)[..., None, None], x, x.new_full((), float("nan")))
-
-
 def _cholesky_nan(a):
     L, info = torch.linalg.cholesky_ex(a)
     return _nan_where_failed(L, info)
 
 
-def _inv_nan(a):
-    X, info = torch.linalg.inv_ex(a)
-    return _nan_where_failed(X, info)
+def _solve_nan(psi, U):
+    """Wilson's ``psi^-1 U``, NaN in a bin whose inverse fails: the
+    hand-written kernel where it takes the input (a CUDA complex128 batch
+    of at most 256 channels, :func:`~.wilson_kernels.solve_route`), else
+    ``inv_ex(psi) @ U``; counted by route in :func:`wilson_counts`."""
+    route = solve_route(psi.device, psi.dtype, psi.shape[-1])
+    _WILSON["solve_" + route] += 1
+    if route == "kernel":
+        return wilson_solve(psi.contiguous(), U.contiguous())
+    return wilson_solve_plain(psi, U)
 
 
 def csd_lam_extents(CSDh, bisect_rounds=30):
@@ -424,7 +431,8 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
     one-sided ``(..., F, N, N)`` CSDs (reference wilson_sf.py:16-128; the
     JAX package's complex128 route of ``_wilson_sf_impl``): Hermitized
     input scaled to unit mean auto-power, the zero-lag Cholesky start, one
-    exact inverse per step (``inv_ex``), the plus operator by FFTs along
+    exact solve per step (``psi^-1 U``: the hand-written kernel on a CUDA
+    complex128 batch, else ``inv_ex``), the plus operator by FFTs along
     frequency, and three exit tests per batch element (error below
     `rtol`, a plateau once the error is below 1e-2, a blow-up 100x above
     the best error after 5 steps). Bins with under 1e-9 of the largest
@@ -472,7 +480,7 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
     go = bool(active.any())
     while go:
         with span("spt.granger.wilson_step"):
-            g = _inv_nan(psi) @ U
+            g = _solve_nan(psi, U)
             gI = g @ g.mH + eye
             gplus, gplus_0 = _plus_operator_onesided(gI, M)
             S = torch.triu(gplus_0)
@@ -620,7 +628,7 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
         gI = {}
         for p in mine:
             with device_context(devices[p]):
-                g = _inv_nan(psi[p]) @ U[p]
+                g = _solve_nan(psi[p], U[p])
                 gI[p] = g @ g.mH + eyes[p]
         # frequency -> row layout, the plus operator along frequency
         pieces = iter(exchange([
@@ -774,7 +782,7 @@ def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
     go = bool(active.any())
     while go:
         with span("spt.granger.wilson_step"):
-            g = _inv_nan(psi) @ U
+            g = _solve_nan(psi, U)
             g = g @ g.mH + eye
             beta = torch.fft.ifft(g, dim=1).real.to(CSD.dtype)
             beta[:, 0] *= 0.5

@@ -57,8 +57,9 @@ mesh's, and within `HALO_TOL`, `WILSON_TOL` or `GRANGER_TOL` of the
 unsharded function on its device, that the bytes it sent and received
 in the routine and in the gather equal the count predicted from the
 shapes, the mesh and, for Wilson, the step count (``Sharded.traffic``),
-and that none of the port's kernels launched (these routines run cuFFT,
-cuBLAS and cuSOLVER).
+and that none of the CSD, PPC and Butterworth kernels launched (these
+routines run cuFFT, cuBLAS and cuSOLVER, and on a card Wilson's steps
+launch its solve kernel, csrc/wilson_solve.cu).
 ``--size small``: a (512, 4) recording of float32 noise (seed 3), an
 order-8 low-pass FIR, 16-sample Hann windows (fourier, tapers kept), 3
 Morlet(6) scales, and the 6-channel, 33-bin CSD of a seeded AR(2) network

@@ -69,7 +69,11 @@ def profile(logdir=None):
         two-sided retry of what the one-sided form left unconverged;
     ``spt.granger.wilson_step``
         one step of either Wilson loop: its launches and its convergence
-        test, which waits for them;
+        test, which waits for them; its solve ``psi^-1 U`` is one launch
+        of ``wilson_solve_kernel`` on a CUDA complex128 batch of at most
+        256 channels, else ``inv_ex`` and a product, and
+        ``ops/connectivity.py::wilson_counts()`` counts the steps' solves
+        by route (``solve_kernel``, ``solve_library``);
     ``spt.granger.formula``
         the Granger-Geweke formula on the factors;
     ``spt.granger.host``

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 # Card-only tests of the port: the CUDA kernels (tiled and untiled CSD,
-# PPC resultant, Butterworth cascade) against oracles and their plain
-# versions, and the coherence, PPC, Granger, jackknife, corr,
+# PPC resultant, Butterworth cascade, Wilson's solve) against oracles and
+# their plain versions, and the coherence, PPC, Granger, jackknife, corr,
 # trial-statistics, freqanalysis, preprocessing and resampling paths on
 # the card against the same paths on the CPU; the device AR(2) generator
 # against float64, a .spy round trip of a coherence computed through
@@ -22,6 +22,7 @@ from syncopy_tpu_torch.engine import routine
 from syncopy_tpu_torch.ops import csd_kernels as ck
 from syncopy_tpu_torch.ops import iir_kernels as ik
 from syncopy_tpu_torch.ops import ppc_kernels as pk
+from syncopy_tpu_torch.ops import wilson_kernels as wk
 
 torch.set_num_threads(1)
 
@@ -461,6 +462,135 @@ def test_singular_inputs_give_nan_on_card(cuda_device):
     lo, hi, _ = pc.csd_lam_extents(C[None])
     assert bool(torch.isfinite(lo).all()) and bool((lo <= hi).all())
     assert bool((lo[0, 4] < 0))  # the negated bin's smallest eigenvalue
+
+
+#: (batch shape, N) of the Wilson solve: the benchmark's step (501 bins of
+#: 128 channels) and its two-sided retry (1000), jackknife replicates,
+#: pairwise Granger, the widest N, both instances' edges and odd N
+WILSON_SOLVE_CASES = [((501,), 128), ((1000,), 128), ((3, 501), 16), ((4096,), 2),
+                      ((64,), 256), ((40,), 33), ((40,), 127), ((5,), 1), ((9,), 17),
+                      ((9,), 32), ((9,), 64)]
+
+
+def _solve_inputs(lead, n, device, seed, diagonal=True):
+    """(*lead, n, n) complex128 psi and U drawn on `device`; psi diagonally
+    loaded, or with its whole diagonal zero (`diagonal=False`)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda: torch.randn(lead + (n, n), dtype=torch.complex128, device=device,  # noqa: E731
+                               generator=gen)
+    psi, U = draw(), draw()
+    eye = torch.eye(n, dtype=torch.bool, device=device)
+    psi = psi + 2 * n ** 0.5 * eye if diagonal else psi.masked_fill(eye, 0)
+    return psi, U
+
+
+def _solve_check(psi, U):
+    """The kernel against its plain version on the card: relative to the
+    largest |X|, 1e-9 (two FP64 solves of well-conditioned systems that
+    round apart); one launch."""
+    before = wk.wilson_solve.launches
+    got = wk.wilson_solve(psi, U)
+    want = wk.wilson_solve_plain(psi, U)
+    torch.cuda.synchronize()
+    assert wk.wilson_solve.launches == before + 1
+    assert got.shape == U.shape and got.dtype == torch.complex128
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-9
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead, n", WILSON_SOLVE_CASES)
+def test_wilson_solve_matches_plain(cuda_device, lead, n):
+    _solve_check(*_solve_inputs(lead, n, cuda_device, seed=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 16, 40, 128])
+def test_wilson_solve_pivots_past_a_zero_diagonal(cuda_device, n):
+    """Every diagonal entry of psi zero: no step can take its diagonal as
+    the pivot (n = 1 is singular and must give NaN)."""
+    psi, U = _solve_inputs((7,), n, cuda_device, seed=100 + n, diagonal=False)
+    if n == 1:
+        assert bool(wk.wilson_solve(psi, U).isnan().all())
+        return
+    X = _solve_check(psi, U)
+    assert float((psi @ X - U).abs().max() / U.abs().max()) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 16, 33, 128])
+def test_wilson_solve_singular_bin_gives_nan_there_only(cuda_device, n):
+    psi, U = _solve_inputs((6,), n, cuda_device, seed=200 + n)
+    psi[4, :, n // 2] = 0  # an exactly zero pivot in column n // 2
+    got = wk.wilson_solve(psi, U)
+    want = wk.wilson_solve_plain(psi, U)
+    assert bool(got[4].isnan().all()) and bool(want[4].isnan().all())
+    keep = [0, 1, 2, 3, 5]
+    assert bool(torch.isfinite(got[keep]).all())
+    assert float((got[keep] - want[keep]).abs().max() / want[keep].abs().max()) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead, n", [((501,), 128), ((64,), 7)])
+def test_wilson_solve_bitwise_deterministic(cuda_device, lead, n):
+    psi, U = _solve_inputs(lead, n, cuda_device, seed=7)
+    assert torch.equal(wk.wilson_solve(psi, U), wk.wilson_solve(psi, U))
+
+
+@pytest.mark.cuda
+def test_wilson_solve_rejects_what_it_does_not_take(cuda_device):
+    psi, U = _solve_inputs((2,), 257, cuda_device, seed=1)
+    with pytest.raises(ValueError, match="channels"):
+        wk.wilson_solve(psi, U)
+    psi, U = _solve_inputs((2,), 8, cuda_device, seed=2)
+    with pytest.raises(TypeError, match="complex128"):
+        wk.wilson_solve(psi.to(torch.complex64), U.to(torch.complex64))
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wilson_solve(psi.mT, U)
+    with pytest.raises(ValueError, match="one shape"):
+        wk.wilson_solve(psi, U[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["one_sided", "two_sided"])
+def test_wilson_steps_take_the_solve_kernel(cuda_device, form):
+    """Every step of a Wilson loop on the card launches the kernel once and
+    inv_ex never; H against the CPU factorization of the same CSD."""
+    from syncopy_tpu_torch.ops import connectivity as pc
+
+    wilson = pc.wilson_sf if form == "one_sided" else pc.wilson_sf_twosided
+    spec, _ = _ar2_spectra(8, 60, 200, seed=25)
+    s = spec[:, 0].astype(np.complex128)
+    csd = torch.from_numpy(np.einsum("bfi,bfj->fij", s, s.conj()) / len(s))
+    C = pc.regularize_csd(csd, cond_max=1e4, eps_max=1e-1)[0]
+    pc.reset_wilson_counts()
+    before = wk.wilson_solve.launches
+    H, Sigma, conv, err, n_iter = wilson(C.to(cuda_device), nIter=100, rtol=5e-6)
+    counts = pc.wilson_counts()
+    steps = counts[form + "_steps"]
+    assert bool(conv) and steps == int(n_iter) > 1
+    assert counts["solve_kernel"] == steps and counts["solve_library"] == 0
+    assert wk.wilson_solve.launches == before + steps
+    H_cpu = wilson(C, nIter=100, rtol=5e-6)[0]
+    assert pc.wilson_counts()["solve_library"] == int(n_iter)
+    assert float((H.cpu() - H_cpu).abs().max() / H_cpu.abs().max()) < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 128])
+def test_wilson_solve_launches_on_every_card(cuda_device, n):
+    """At N = 128 a block takes more than the default 48 KB of shared
+    memory, an attribute the runtime keeps per card: the kernel launches
+    on every visible card in turn and then on the first again, each time
+    with another card current, and agrees with its plain version there."""
+    cards = torch.cuda.device_count()
+    for k in [*range(cards), 0]:
+        dev = torch.device("cuda", k)
+        psi, U = _solve_inputs((3,), n, dev, seed=k)
+        with torch.cuda.device(cards - 1 - k):
+            X = _solve_check(psi, U)
+        assert X.device == dev
 
 
 def _equal_analog(seed, n_trials=9, n_samples=400, n_chan=6):
