@@ -365,7 +365,7 @@ def _attach_jackknife(out, replicates, method, output, log_dict, parallel=None):
         jack_rep = _normalize_cross_spectra(replicates, output, log_dict, keeptrials=True,
                                             double=True, parallel=parallel)
     else:
-        av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
+        av = GrangerCausality()
         jack_rep = CrossSpectralData(dimord=list(CrossSpectralData._defaultDimord))
         av.initialize(replicates, jack_rep._stackingDim)
         av.compute(replicates, jack_rep, log_dict=log_dict, parallel=parallel)
@@ -524,7 +524,7 @@ def _granger(st_out, st_compRoutine, nTrials, send_idx, rec_idx, data, log_dict,
     route warns."""
     from .AV_compRoutines import GrangerCausality
 
-    av = GrangerCausality(rtol=5e-6, nIter=100, cond_max=1e4)
+    av = GrangerCausality()
     if send_idx is not None:
         out = _granger_pairwise(st_out, send_idx, rec_idx, data, av)
     elif _granger_rank_deficient(st_compRoutine, nTrials, st_out):
@@ -589,25 +589,28 @@ def _granger_out(st_avg, G, channel_i, channel_j, info, log):
     return out
 
 
+def _granger_host(csds, cfg):
+    """The host float64 route of Granger on each ``(F, N, N)`` CSD of the
+    iterable `csds`: regularization, Wilson, Eq. 8. Returns G ``(n, F, N,
+    N)`` float32 and, one entry a CSD, ``converged``, ``max rel. err``,
+    ``reg. factor`` and ``initial cond. num``."""
+    from ..ops.connectivity import granger_host, regularize_csd_host, wilson_sf_host
+
+    G, rows = [], []
+    for csd in csds:
+        CSDreg, factor, ini_cn = regularize_csd_host(csd, cond_max=cfg["cond_max"], eps_max=1e-1)
+        H, Sigma, conv, err = wilson_sf_host(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
+        G.append(granger_host(CSDreg, H, Sigma).astype(np.float32))
+        rows.append((bool(conv), float(err), float(factor), float(ini_cn)))
+    return (np.stack(G),) + tuple(zip(*rows))
+
+
 @spanned("spt.granger.host")
 def _granger_host_full(st_avg, av_routine):
     """Full-matrix Granger with the host float64 factorization, one per
     sliding window of time-resolved input."""
-    from ..ops.connectivity import granger_host, regularize_csd_host, wilson_sf_host
-
-    cfg = av_routine.cfg
     csd_windows = np.asarray(st_avg.trials[0])  # (nTime, F, N, N)
-    G = np.empty(csd_windows.shape, dtype=np.float32)
-    convs, errs, factors, ini_cns = [], [], [], []
-    for t in range(csd_windows.shape[0]):
-        CSDreg, factor, ini_cn = regularize_csd_host(
-            csd_windows[t], cond_max=cfg["cond_max"], eps_max=1e-1)
-        H, Sigma, conv, err = wilson_sf_host(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
-        G[t] = granger_host(CSDreg, H, Sigma).astype(np.float32)
-        convs.append(bool(conv))
-        errs.append(float(err))
-        factors.append(float(factor))
-        ini_cns.append(float(ini_cn))
+    G, convs, errs, factors, ini_cns = _granger_host(csd_windows, av_routine.cfg)
     return _granger_out(st_avg, G, st_avg.channel_i, st_avg.channel_j, {
         "converged": all(convs), "max rel. err": max(errs),
         "reg. factor": max(factors), "initial cond. num": max(ini_cns),
@@ -619,23 +622,13 @@ def _granger_host_replicates(replicates, av_routine):
     """Host float64 Granger of every jackknife replicate: the retry when a
     device factorization of the leave-one-out CSDs did not converge
     (reference connectivity_analysis.py:759-789)."""
-    from ..ops.connectivity import granger_host, regularize_csd_host, wilson_sf_host
-
-    cfg = av_routine.cfg
-    stacked, convs, errs = [], [], []
-    for k in range(len(replicates.trials)):
-        csd = np.asarray(replicates.trials[k])[0]  # (F, N, N)
-        CSDreg, _, _ = regularize_csd_host(csd, cond_max=cfg["cond_max"], eps_max=1e-1)
-        H, Sigma, conv, err = wilson_sf_host(CSDreg, nIter=cfg["nIter"], rtol=cfg["rtol"])
-        stacked.append(granger_host(CSDreg, H, Sigma).astype(np.float32)[None])
-        convs.append(bool(conv))
-        errs.append(float(err))
-    G = np.concatenate(stacked, axis=0)
+    # one (F, N, N) CSD a replicate
+    csds = (np.asarray(replicates.trials[k])[0] for k in range(len(replicates.trials)))
+    G, convs, errs, _, _ = _granger_host(csds, av_routine.cfg)
+    n_rep = len(G)
     jack_rep = _granger_out(replicates, G, replicates.channel_i, replicates.channel_j, {
-        "converged": bool(np.all(convs)),
-        "max rel. err": float(np.max(errs)) if errs else float("nan"),
-    }, "computed {} jackknife Granger replicates (host float64)".format(len(stacked)))
-    n_rep = len(stacked)
+        "converged": bool(np.all(convs)), "max rel. err": float(np.max(errs)),
+    }, "computed {} jackknife Granger replicates (host float64)".format(n_rep))
     trl = np.zeros((n_rep, 3))
     trl[:, 0] = np.arange(n_rep)
     trl[:, 1] = trl[:, 0] + 1

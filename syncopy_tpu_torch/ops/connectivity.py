@@ -26,6 +26,8 @@
 # positions (the all-to-all that GSPMD inserts in the JAX package), by
 # copies in one process and by point-to-point messages across processes.
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -243,8 +245,8 @@ _FAST_REG_MIN_CHAN = 96
 
 #: Wilson factorizations since the last reset_wilson_counts(): the (F, N, N)
 #: CSDs factorized by wilson_sf ("one_sided"), wilson_sf_twosided
-#: ("two_sided") and wilson_sf_host ("host"), the steps of the two device
-#: loops (a batched loop's step counts once), and the steps' solves
+#: ("two_sided") and wilson_sf_host ("host"), the device steps of each
+#: form (a batched step counts once), and the steps' solves
 #: psi^-1 U by route (_solve_nan): the hand-written kernel
 #: ("solve_kernel") or inv_ex times U ("solve_library")
 _WILSON = {"one_sided": 0, "two_sided": 0, "host": 0, "one_sided_steps": 0,
@@ -424,6 +426,96 @@ def _plus_operator_onesided(g, M):
     return torch.fft.rfft(beta, dim=1), g0
 
 
+def _plus_operator(g):
+    """The []+ operator on a whole two-sided spectrum ``(B, M, N, N)``, by
+    complex FFTs: as :func:`_plus_operator_onesided`, with other rounding."""
+    M = g.shape[1]
+    beta = torch.fft.ifft(g, dim=1).real.to(g.dtype)
+    beta[:, 0] *= 0.5
+    g0 = beta[:, 0].clone()
+    beta[:, M // 2] *= 0.5
+    beta[:, M // 2 + 1 :] = 0
+    return torch.fft.fft(beta, dim=1), g0
+
+
+def _wilson_running(err, prev_err, best_err, it, rtol, nIter, blowup):
+    """Wilson's exit test, per element: True while the error is at or above
+    `rtol` (a NaN error stops), under `nIter` steps, not on a plateau
+    (below 1e-2 and falling by under 1e-4 of itself) and, with `blowup`,
+    not blown up (100x the best error after 5 steps)."""
+    plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
+    blown = (err > 100 * best_err) & (it > 5) if blowup else False
+    return (err >= rtol) & (it < nIter) & ~(plateau | blown)
+
+
+def _wilson_batched(CSD, nIter, rtol, form):
+    """The iteration of :func:`wilson_sf` (`form` "one_sided") and
+    :func:`wilson_sf_twosided` ("two_sided"). The forms differ in the
+    spectrum they iterate on (the F bins, or all 2F - 2), their zero-lag
+    start and plus operator, and the blow-up exit (one-sided only)."""
+    lead = CSD.shape[:-3]
+    F, N = CSD.shape[-3], CSD.shape[-1]
+    CSD = CSD.reshape((-1, F, N, N))
+    B, cdtype, rdtype = CSD.shape[0], CSD.dtype, _real_dtype(CSD.dtype)
+    eye = torch.eye(N, dtype=cdtype, device=CSD.device)
+    two_sided = form == "two_sided"
+
+    CSD = (CSD + CSD.mH) / 2
+    scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=(-2, -1))  # (B,)
+    if two_sided:  # all 2F - 2 bins of the conjugate-symmetric spectrum
+        CSD = torch.cat([CSD, CSD[:, 1 : F - 1].flip(1).conj()], dim=1)
+    CSD = CSD / scale[:, None, None, None]
+    absCSD = CSD.abs()
+    diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (B, bins)
+    valid_bin = (diag_power > 1e-9 * diag_power.amax(dim=-1, keepdim=True))[..., None, None]
+
+    # start: Cholesky factor of the zero-lag covariance, the same at every
+    # frequency. The forms sum the circle apart and round apart, which is
+    # part of why the two-sided retry can converge where the other diverged.
+    if two_sided:
+        gamma0 = torch.fft.fft(CSD, dim=1)[:, 0]
+        plus = _plus_operator
+    else:
+        gamma0 = CSD.sum(dim=1) + CSD[:, 1 : F - 1].conj().sum(dim=1)
+        plus = partial(_plus_operator_onesided, M=2 * F - 2)
+    gamma0 = ((gamma0 + gamma0.mH) / 2).real
+    psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (B, N, N)
+    psi = psi0[:, None].expand(-1, CSD.shape[1], -1, -1).clone()
+    U = _cholesky_nan(CSD)
+
+    inf = torch.full((B,), float("inf"), dtype=rdtype, device=CSD.device)
+    err, prev_err, best_err = inf, inf, inf
+    it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
+    active = _wilson_running(err, prev_err, best_err, it, rtol, nIter, not two_sided)
+    go = bool(active.any())
+    while go:
+        with span("spt.granger.wilson_step"):
+            g = _solve_nan(psi, U)
+            gplus, g0 = plus(g @ g.mH + eye)
+            S = torch.triu(g0)
+            S = S - S.mH
+            psi_new = psi @ (gplus + S[:, None])
+            psi0_new = psi0 @ (g0 + S)
+            rel = (CSD - psi_new @ psi_new.mH).abs() / absCSD
+            new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
+            step = active[:, None, None]
+            psi = torch.where(step[..., None], psi_new, psi)
+            psi0 = torch.where(step, psi0_new, psi0)
+            prev_err = torch.where(active, err, prev_err)
+            err = torch.where(active, new_err, err)
+            best_err = torch.where(active, torch.minimum(best_err, new_err), best_err)
+            it = it + active
+            active = _wilson_running(err, prev_err, best_err, it, rtol, nIter, not two_sided)
+            go = bool(active.any())
+        _WILSON[form + "_steps"] += 1
+    _WILSON[form] += B
+
+    Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
+    Hfunc = (psi @ _inv_nan(psi0)[:, None])[:, :F]
+    return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
+            (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
+
+
 @spanned("spt.granger.wilson")
 def wilson_sf(CSD, nIter=100, rtol=1e-6):
     """
@@ -444,67 +536,25 @@ def wilson_sf(CSD, nIter=100, rtol=1e-6):
     Returns ``(Hfunc (..., F, N, N), Sigma (..., N, N), converged (...),
     err (...), n_iter (...))``; the step count is the port's addition.
     """
-    lead = CSD.shape[:-3]
-    F, N = CSD.shape[-3], CSD.shape[-1]
-    CSD = CSD.reshape((-1, F, N, N))
-    cdtype, rdtype = CSD.dtype, _real_dtype(CSD.dtype)
-    eye = torch.eye(N, dtype=cdtype, device=CSD.device)
+    return _wilson_batched(CSD, nIter, rtol, "one_sided")
 
-    CSD = (CSD + CSD.mH) / 2
-    scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=(-2, -1))  # (B,)
-    CSD = CSD / scale[:, None, None, None]
-    absCSD = CSD.abs()
-    M = 2 * F - 2
-    diag_power = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (B, F)
-    valid_bin = (diag_power > 1e-9 * diag_power.amax(dim=-1, keepdim=True))[..., None, None]
 
-    # start: Cholesky factor of the zero-lag covariance (the sum over the
-    # two-sided circle), the same at every frequency
-    gamma0 = CSD.sum(dim=1) + CSD[:, 1 : F - 1].conj().sum(dim=1)
-    gamma0 = ((gamma0 + gamma0.mH) / 2).real
-    psi0 = _cholesky_nan(gamma0).mT.to(cdtype)  # (B, N, N)
-    psi = psi0[:, None].expand(-1, F, -1, -1).clone()
-    U = _cholesky_nan(CSD)
+@spanned("spt.granger.wilson_twosided")
+def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
+    """
+    :func:`wilson_sf_host`'s iteration on the device, batched over the
+    leading dims of one-sided ``(..., F, N, N)`` CSDs: the two-sided
+    spectrum of all 2F - 2 bins, complex FFTs, the tolerance and plateau
+    exits (no blow-up exit), each element frozen where it stops alone.
+    The same iteration as :func:`wilson_sf` with other rounding; where a
+    demeaned DC bin's rounding noise makes the one-sided form diverge it
+    can still converge, so GrangerCausality retries with it what the
+    one-sided form left unconverged, before any host fallback.
 
-    B = CSD.shape[0]
-    inf = torch.full((B,), float("inf"), dtype=rdtype, device=CSD.device)
-    err, prev_err, best_err = inf, inf, inf
-    it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
-
-    def running(err, prev_err, best_err, it):
-        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
-        blown = (err > 100 * best_err) & (it > 5)
-        return (err >= rtol) & (it < nIter) & ~(plateau | blown)
-
-    active = running(err, prev_err, best_err, it)
-    go = bool(active.any())
-    while go:
-        with span("spt.granger.wilson_step"):
-            g = _solve_nan(psi, U)
-            gI = g @ g.mH + eye
-            gplus, gplus_0 = _plus_operator_onesided(gI, M)
-            S = torch.triu(gplus_0)
-            S = S - S.mH
-            psi_new = psi @ (gplus + S[:, None])
-            psi0_new = psi0 @ (gplus_0 + S)
-            rel = (CSD - psi_new @ psi_new.mH).abs() / absCSD
-            new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
-            step = active[:, None, None]
-            psi = torch.where(step[..., None], psi_new, psi)
-            psi0 = torch.where(step, psi0_new, psi0)
-            prev_err = torch.where(active, err, prev_err)
-            err = torch.where(active, new_err, err)
-            best_err = torch.where(active, torch.minimum(best_err, new_err), best_err)
-            it = it + active
-            active = running(err, prev_err, best_err, it)
-            go = bool(active.any())
-        _WILSON["one_sided_steps"] += 1
-    _WILSON["one_sided"] += B
-
-    Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
-    Hfunc = psi @ _inv_nan(psi0)[:, None]
-    return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
-            (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
+    Returns ``(Hfunc (..., F, N, N), Sigma (..., N, N), converged (...),
+    err (...), n_iter (...))``, as :func:`wilson_sf`.
+    """
+    return _wilson_batched(CSD, nIter, rtol, "two_sided")
 
 
 def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
@@ -618,13 +668,7 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     inf = torch.full((), float("inf"), dtype=rdtype, device=out_dev)
     err, prev_err, best_err = inf, inf, inf
     it = torch.zeros((), dtype=torch.int64, device=out_dev)
-
-    def running(err, prev_err, best_err, it):
-        plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
-        blown = (err > 100 * best_err) & (it > 5)
-        return (err >= rtol) & (it < nIter) & ~(plateau | blown)
-
-    while bool(running(err, prev_err, best_err, it)):
+    while bool(_wilson_running(err, prev_err, best_err, it, rtol, nIter, True)):
         gI = {}
         for p in mine:
             with device_context(devices[p]):
@@ -737,80 +781,6 @@ def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_m
         "initial cond. num": float(reg[1]),
     }
     return G, info
-
-
-@spanned("spt.granger.wilson_twosided")
-def wilson_sf_twosided(CSD, nIter=100, rtol=1e-6):
-    """
-    :func:`wilson_sf_host`'s iteration on the device, batched over the
-    leading dims of one-sided ``(..., F, N, N)`` CSDs: the two-sided
-    spectrum of all 2F - 2 bins, complex FFTs, the tolerance and plateau
-    exits (no blow-up exit), each element frozen where it stops alone.
-    The same iteration as :func:`wilson_sf` with other rounding; where a
-    demeaned DC bin's rounding noise makes the one-sided form diverge it
-    can still converge, so GrangerCausality retries jackknife replicates
-    with it before any host fallback.
-
-    Returns ``(Hfunc (..., F, N, N), Sigma (..., N, N), converged (...),
-    err (...), n_iter (...))``, as :func:`wilson_sf`.
-    """
-    lead = CSD.shape[:-3]
-    F, N = CSD.shape[-3], CSD.shape[-1]
-    CSD = CSD.reshape((-1, F, N, N))
-    rdtype = _real_dtype(CSD.dtype)
-    eye = torch.eye(N, dtype=CSD.dtype, device=CSD.device)
-
-    CSD = (CSD + CSD.mH) / 2
-    scale = torch.diagonal(CSD, dim1=-2, dim2=-1).abs().mean(dim=(-2, -1))  # (B,)
-    full = torch.cat([CSD, CSD[:, 1 : F - 1].flip(1).conj()], dim=1) / scale[:, None, None, None]
-    M = full.shape[1]
-    absfull = full.abs()
-    diag_power = torch.diagonal(full, dim1=-2, dim2=-1).abs().mean(dim=-1)  # (B, M)
-    valid_bin = (diag_power > 1e-9 * diag_power.amax(dim=-1, keepdim=True))[..., None, None]
-
-    gamma0 = torch.fft.fft(full, dim=1)[:, 0]
-    gamma0 = ((gamma0 + gamma0.mH) / 2).real
-    psi0 = _cholesky_nan(gamma0).mT.to(CSD.dtype)  # (B, N, N)
-    psi = psi0[:, None].expand(-1, M, -1, -1).clone()
-    U = _cholesky_nan(full)
-
-    B = full.shape[0]
-    inf = torch.full((B,), float("inf"), dtype=rdtype, device=CSD.device)
-    err, prev_err = inf, inf
-    it = torch.zeros(B, dtype=torch.int64, device=CSD.device)
-    active = torch.ones(B, dtype=torch.bool, device=CSD.device)
-    go = bool(active.any())
-    while go:
-        with span("spt.granger.wilson_step"):
-            g = _solve_nan(psi, U)
-            g = g @ g.mH + eye
-            beta = torch.fft.ifft(g, dim=1).real.to(CSD.dtype)
-            beta[:, 0] *= 0.5
-            g0 = beta[:, 0].clone()
-            beta[:, M // 2] *= 0.5
-            beta[:, M // 2 + 1 :] = 0
-            S = torch.triu(g0)
-            S = S - S.mH
-            psi_new = psi @ (torch.fft.fft(beta, dim=1) + S[:, None])
-            psi0_new = psi0 @ (g0 + S)
-            rel = (full - psi_new @ psi_new.mH).abs() / absfull
-            new_err = torch.where(valid_bin, rel, 0.0).amax(dim=(1, 2, 3))
-            step = active[:, None, None]
-            psi = torch.where(step[..., None], psi_new, psi)
-            psi0 = torch.where(step, psi0_new, psi0)
-            prev_err = torch.where(active, err, prev_err)
-            err = torch.where(active, new_err, err)
-            it = it + active
-            plateau = (err < 1e-2) & (prev_err - err < 1e-4 * err)
-            active = active & (err >= rtol) & (it < nIter) & ~plateau & ~torch.isnan(err)
-            go = bool(active.any())
-        _WILSON["two_sided_steps"] += 1
-    _WILSON["two_sided"] += B
-
-    Sigma = (psi0 @ psi0.mT) * scale[:, None, None]
-    Hfunc = (psi @ _inv_nan(psi0)[:, None])[:, :F]
-    return (Hfunc.reshape(lead + (F, N, N)), Sigma.reshape(lead + (N, N)),
-            (err < rtol).reshape(lead), err.reshape(lead), it.reshape(lead))
 
 
 @spanned("spt.granger.formula")

@@ -196,20 +196,27 @@ def test_device_and_host_wilson_agree():
     assert bool(conv) == hconv and abs(float(err) - herr) <= 1e-3 * herr
 
 
-def test_batched_wilson_stops_each_element_where_it_would_alone():
+#: both batched device forms, which share one loop
+WILSON_FORMS = pytest.mark.parametrize("wilson", [pops.wilson_sf, pops.wilson_sf_twosided],
+                                       ids=["one_sided", "two_sided"])
+
+
+@WILSON_FORMS
+def test_batched_wilson_stops_each_element_where_it_would_alone(wilson):
     """A batch of (49, 4, 4) CSDs that stop at different steps: by the
     tolerance (two of them), by the step limit, and at once on a NaN
     factor. Each element stops at the step where it stops alone, with the
     same factor (the batched products may round differently in the last
-    bits), and the NaN element leaves the others untouched."""
+    bits), and the NaN element leaves the others untouched. Both forms
+    stop these elements at the same steps."""
     cases = [(60, 0, False), (6, 6, False), (5, 1, True), (40, 2, True)]
     Cs = [pops.regularize_csd(torch.from_numpy(_csd(4, n, 96, seed, demean=demean)),
                               cond_max=1e4, eps_max=1e-1)[0]
           for n, seed, demean in cases]
     Cs[3][5] = -Cs[3][5]  # negative definite at one bin: NaN Cholesky factor
-    H, Sigma, conv, err, n_iter = pops.wilson_sf(torch.stack(Cs), nIter=40, rtol=5e-6)
+    H, Sigma, conv, err, n_iter = wilson(torch.stack(Cs), nIter=40, rtol=5e-6)
     for b, C in enumerate(Cs):
-        h, s, c, e, n = pops.wilson_sf(C, nIter=40, rtol=5e-6)
+        h, s, c, e, n = wilson(C, nIter=40, rtol=5e-6)
         assert int(n_iter[b]) == int(n) and bool(conv[b]) == bool(c)
         assert np.allclose(float(err[b]), float(e), rtol=1e-6, equal_nan=True)
         if b < 3:
@@ -219,13 +226,14 @@ def test_batched_wilson_stops_each_element_where_it_would_alone():
     assert n_iter[2] == 40 and n_iter[3] == 1 and 1 < n_iter[0] != n_iter[1] < 40
 
 
-def test_singular_input_gives_nan_not_an_exception():
+@WILSON_FORMS
+def test_singular_input_gives_nan_not_an_exception(wilson):
     """A CSD without a Cholesky factor and a singular psi give NaN
     through cholesky_ex / inv_ex, as the JAX package does, and no
     exception."""
     C = torch.from_numpy(CSDS["zero_power_dc"]())
     C[5] = -C[5]  # negative definite at one bin
-    H, Sigma, conv, err, n_iter = pops.wilson_sf(C, nIter=20, rtol=5e-6)
+    H, Sigma, conv, err, n_iter = wilson(C, nIter=20, rtol=5e-6)
     assert not bool(conv) and torch.isnan(err) and int(n_iter) == 1
     assert pops._inv_nan(torch.zeros((2, 3, 3), dtype=torch.complex128)).isnan().all()
     lo, hi, lam_max = pops.csd_lam_extents(C[None])
