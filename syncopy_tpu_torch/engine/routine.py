@@ -62,6 +62,7 @@ __all__ = [
     "chunk_trials",
     "clear_device_cache",
     "default_device",
+    "log_format_counts",
     "plan_counts",
     "set_device",
     "transfer_counts",
@@ -124,6 +125,56 @@ def plan_counts():
 def reset_plan_counts():
     for k in _PLANS:
         _PLANS[k] = 0
+
+
+#: the text of array values that write_log printed, keyed by dtype, shape,
+#: content and numpy's print options, so that an equal array under equal
+#: options is printed once per process (numpy's array printer takes
+#: milliseconds for a frequency axis of a few hundred bins, every call). At
+#: most _LOG_TEXT_ENTRIES entries, each of at most _LOG_TEXT_SIZE elements
+#: (object arrays, whose bytes are pointers, are never stored); the oldest
+#: entry goes first.
+_LOG_TEXT = {}
+_LOG_TEXT_ENTRIES = 32
+_LOG_TEXT_SIZE = 4096
+
+#: write_log's values since the last reset_log_format_counts(): "cached"
+#: array text taken from _LOG_TEXT, "formatted" array text printed and
+#: stored, "direct" any other value printed by str()
+_LOG_FORMATS = {"cached": 0, "formatted": 0, "direct": 0}
+
+
+def log_format_counts():
+    """write_log's values by how their text was made, since the last
+    :func:`reset_log_format_counts`."""
+    return dict(_LOG_FORMATS)
+
+
+def reset_log_format_counts():
+    for k in _LOG_FORMATS:
+        _LOG_FORMATS[k] = 0
+
+
+def _log_text(v):
+    """``str(v)``, printed once per distinct content for a plain numeric
+    ndarray that numpy prints in full (at most `threshold` elements, no
+    custom formatter); every other value is printed by ``str()``."""
+    opts = np.get_printoptions()
+    if (type(v) is not np.ndarray or v.dtype.kind not in "biufc" or opts["formatter"] is not None
+            or v.size > min(opts["threshold"], _LOG_TEXT_SIZE)):
+        _LOG_FORMATS["direct"] += 1
+        return str(v)
+    key = (v.dtype.str, v.shape, v.tobytes(), tuple(opts.items()))
+    text = _LOG_TEXT.get(key)
+    if text is not None:
+        _LOG_FORMATS["cached"] += 1
+        return text
+    _LOG_FORMATS["formatted"] += 1
+    text = str(v)
+    if len(_LOG_TEXT) >= _LOG_TEXT_ENTRIES:
+        _LOG_TEXT.pop(next(iter(_LOG_TEXT)), None)
+    _LOG_TEXT[key] = text
+    return text
 
 
 def _device_cache_put(key, chunks, nbytes):
@@ -1110,7 +1161,7 @@ class ComputationalRoutine:
         if log_dict:
             maxlen = max(len(str(k)) for k in log_dict)
             for k, v in log_dict.items():
-                logOpts += "\n\t{0:<{w}} : {1}".format(str(k), str(v), w=maxlen)
+                logOpts += "\n\t{0:<{w}} : {1}".format(str(k), _log_text(v), w=maxlen)
         out.log = "computed {name} with settings{opts}".format(
             name=self.__class__.__name__, opts=logOpts or " (defaults)"
         )
