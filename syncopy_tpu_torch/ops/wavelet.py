@@ -32,6 +32,7 @@ import torch
 from scipy.special import gamma as _gamma
 from scipy.special import hermitenorm as _hermitenorm
 
+from ..shared.profiling import span
 from .windows import nextpow2
 
 __all__ = [
@@ -42,7 +43,9 @@ __all__ = [
     "MorletSL",
     "get_optimal_wavelet_scales",
     "cwt",
+    "cwt_counts",
     "cwt_time_sharded",
+    "reset_cwt_counts",
     "superlet",
     "superlet_weights",
     "WaveletAnalysis",
@@ -52,6 +55,23 @@ __all__ = [
 #: device bytes of one block of superlet transforms, (..., orders,
 #: scales, L) complex and its temporaries; blocks hold at least one scale
 _SCALE_BLOCK_BYTES = 1 << 30
+
+#: cwt() since the last reset_cwt_counts(): its calls, the inverse
+#: transforms it ran (leading rows x channels x scales) by the length of
+#: their bucket, and the scale banks it copied to the device, with their
+#: bytes
+_CWT = {"calls": 0, "transforms": {}, "bank_uploads": 0, "bank_bytes": 0}
+
+
+def cwt_counts():
+    """The calls of :func:`cwt`, its inverse transforms by bucket length
+    (``{L: count}``) and its bank uploads and their bytes, since the last
+    :func:`reset_cwt_counts`."""
+    return dict(_CWT, transforms=dict(_CWT["transforms"]))
+
+
+def reset_cwt_counts():
+    _CWT.update(calls=0, transforms={}, bank_uploads=0, bank_bytes=0)
 
 
 class Morlet:
@@ -303,7 +323,8 @@ def _signal_fft(data, L):
 
 def cwt(data, wavelet, scales, dt, power_only=False):
     """
-    Batched continuous wavelet transform.
+    Batched continuous wavelet transform, inside the span
+    ``spt.specest.cwt`` and counted by :func:`cwt_counts`.
 
     Parameters
     ----------
@@ -327,18 +348,25 @@ def cwt(data, wavelet, scales, dt, power_only=False):
     # only
     Ls = [nextpow2(nSamples + int(np.ceil(10 * s / dt)) + 1) for s in scales_t]
     lead, C = data.shape[:-2], data.shape[-1]
+    rows = int(np.prod(lead)) * C
+    _CWT["calls"] += 1
     out = None
-    for L_b, idx in _scale_buckets(Ls):
-        kfft = _wavelet_kernel_fft(key, tuple(scales_t[i] for i in idx), float(dt), L_b)
-        bank = torch.from_numpy(kfft).to(data.device)  # (S_b, L)
-        y = torch.fft.ifft(_signal_fft(data, L_b)[..., None, :] * bank, dim=-1)[..., :nSamples]
-        if power_only:
-            y = y.real * y.real + y.imag * y.imag
-        if out is None:
-            out = torch.empty(lead + (C, len(scales_t), nSamples), dtype=y.dtype,
-                              device=data.device)
-        out[..., torch.as_tensor(idx, device=data.device), :] = y  # (..., C, S, T)
-    return out.movedim(-3, -1)
+    with span("spt.specest.cwt"):
+        for L_b, idx in _scale_buckets(Ls):
+            kfft = _wavelet_kernel_fft(key, tuple(scales_t[i] for i in idx), float(dt), L_b)
+            bank = torch.from_numpy(kfft).to(data.device)  # (S_b, L)
+            _CWT["bank_uploads"] += 1
+            _CWT["bank_bytes"] += kfft.nbytes
+            _CWT["transforms"][L_b] = _CWT["transforms"].get(L_b, 0) + rows * len(idx)
+            y = torch.fft.ifft(_signal_fft(data, L_b)[..., None, :] * bank,
+                               dim=-1)[..., :nSamples]
+            if power_only:
+                y = y.real * y.real + y.imag * y.imag
+            if out is None:
+                out = torch.empty(lead + (C, len(scales_t), nSamples), dtype=y.dtype,
+                                  device=data.device)
+            out[..., torch.as_tensor(idx, device=data.device), :] = y  # (..., C, S, T)
+        return out.movedim(-3, -1)
 
 
 def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):

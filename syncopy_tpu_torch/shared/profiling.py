@@ -79,7 +79,12 @@ def profile(logdir=None):
     ``spt.granger.host``
         the host float64 Granger path (regularization, Wilson and the
         formula in numpy), where the device route is gated off or both of
-        its forms failed.
+        its forms failed;
+    ``spt.specest.cwt``
+        one continuous wavelet transform (``ops/wavelet.py::cwt``, one a
+        chunk of a wavelet freqanalysis): its bank uploads, transforms and
+        power; ``ops/wavelet.py::cwt_counts()`` counts its calls, inverse
+        transforms by bucket length and bank uploads.
 
     Read an idle stretch of the card's row by the innermost span or torch
     op open above it on the calling thread: under
